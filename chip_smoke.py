@@ -1,0 +1,442 @@
+"""Chip smoke test of the PyTorch port (fpl_plus_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the root of a checkout; needs one card
+
+It builds the port's Triton kernel from this checkout (cache under
+``build/triton``), then runs, each phase failing the script on any error:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. kernel: ``dsbn_prelu`` (Triton) against ``dsbn_prelu_reference`` (plain
+   PyTorch) on the card, at every (C, spatial) shape a flagship window
+   forward gives it (batch 8 = 4 TTA variants x patch_chunk 2) plus a ragged
+   one, domains 0 and 1, f32 and bf16; CUDA-event times of the kernel, of the
+   plain version, and of F.batch_norm + F.prelu (a two-call yardstick: no
+   single PyTorch call computes this function), beside the byte bound;
+3. forward: one [1,1,28,128,128] eval window of the full-width UNet2D5_dsbn
+   (random weights from a seeded torch.Generator, non-trivial running
+   statistics, domain 1) on the card (kernel) and on the CPU (plain), TF32 off;
+4. serving: the pseudo-label test stage through ``fpl_plus_torch.cli.main``
+   on 3 seeded 40x160x272 NIfTI volumes with the phase-3 weights saved as a
+   reference-layout ``.pt`` checkpoint, at f32 and at bf16; the launch counter
+   must equal 18 x the network forwards of each run.
+
+Then it prints one ``{"kernels": [...]}`` line and, last, the ok line. It
+imports nothing of the JAX package. Without a card, or without the
+``fpl_plus_torch`` package beside it, it exits non-zero and prints no result.
+"""
+import copy
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+NET_CFG = {'net_type': 'UNet2D5_dsbn', 'num_domains': 2, 'class_num': 2,
+           'in_chns': 1, 'feature_chns': [32, 64, 128, 256, 512],
+           'conv_dims': [2, 2, 3, 3, 3],
+           'dropout': [0.0, 0.0, 0.3, 0.4, 0.5], 'bilinear': False}
+WINDOW = [28, 128, 128]
+VOLUME = (40, 160, 272)
+N_VOLUMES = 3
+PATCH_CHUNK = 2
+TTA_VARIANTS = 4
+BATCH = TTA_VARIANTS * PATCH_CHUNK
+DOMAIN = 1
+SEED = 20261016
+# tolerances: f32 -- the same f32 arithmetic, rsqrt/division rounded by
+# another instruction; bf16 -- both round one f32 value to bf16, so they
+# differ by at most one bf16 ulp (2^-8 relative) where the f32 values
+# straddle a rounding boundary
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# forward phase, f32 with TF32 off: cuDNN and the CPU sum ~20 convolution
+# layers in different orders
+FWD_TOL = 1e-3
+REPLACES = 'fpl_plus_tpu/ops/pallas_fused.py:48'
+CONVS = (torch.nn.Conv2d, torch.nn.Conv3d)
+TRANSPOSED = (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
+SOURCE = 'fpl_plus_torch/ops/dsbn_prelu.py'
+
+CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+test_csv = {root}/target_test.csv
+test_transform = [NormalizeWithMeanStd, Pad]
+NormalizeWithMeanStd_channels = [0]
+Pad_output_size = [28, 128, 128]
+
+[network]
+net_type = UNet2D5_dsbn
+num_domains = 2
+class_num = 2
+in_chns = 1
+feature_chns = [32, 64, 128, 256, 512]
+conv_dims = [2, 2, 3, 3, 3]
+dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
+bilinear = False
+
+[training]
+ckpt_save_dir = {root}/model/gen
+
+[testing]
+ckpt_mode = 0
+domian_label = 1
+output_dir = {root}/{out}
+sliding_window_enable = True
+sliding_window_size = [28, 128, 128]
+sliding_window_stride = [28, 128, 128]
+tta_mode = 1
+patch_chunk = 2
+precision = {precision}
+"""
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError('chip_smoke: ' + msg)
+
+
+def memory_rate(name: str) -> float:
+    """Device-memory bytes/s from NVIDIA's data sheets, by card name."""
+    if 'H100' in name and 'PCIe' in name:
+        return 2.0e12
+    if 'H100' in name and 'NVL' in name:
+        return 3.9e12
+    if 'H200' in name:
+        return 4.8e12
+    return 3.35e12                       # H100 SXM (HBM3)
+
+
+def cuda_ms(fn, reps=20):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def dsbn_shapes(batch):
+    """Input shape of each of the 18 DSBN+PReLU launches of one forward of
+    a ``batch``-window chunk at NET_CFG, in launch order (2D levels fold
+    depth into the batch)."""
+    d, h, w = WINDOW
+    levels = []
+    for c, dim in zip(NET_CFG['feature_chns'], NET_CFG['conv_dims']):
+        levels.append((batch * d, c, h, w) if dim == 2
+                      else (batch, c, d, h, w))
+        d, h, w = (d, h // 2, w // 2) if dim == 2 else (d // 2, h // 2,
+                                                         w // 2)
+    return [levels[i] for i in (0, 1, 2, 3, 4, 3, 2, 1, 0) for _ in (1, 2)]
+
+
+def random_tables(c, gen, dev):
+    def t(x):
+        return x.to(dev)
+    return (t(torch.rand(2, c, generator=gen) + 0.5),
+            t(torch.randn(2, c, generator=gen)),
+            t(torch.randn(2, c, generator=gen)),
+            t(torch.rand(2, c, generator=gen) + 0.5))
+
+
+def kernel_phase(dev, rate):
+    from fpl_plus_torch.ops.dsbn_prelu import (dsbn_prelu,
+                                              dsbn_prelu_reference)
+    gen = torch.Generator().manual_seed(SEED)
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
+    alpha = torch.tensor([0.25], device=dev)
+    shapes = sorted(set(dsbn_shapes(BATCH)), key=lambda s: -np.prod(s))
+    ragged = (3, 96, 7, 9, 11)           # S = 693: no multiple of 16
+    rows, max_err = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in shapes + [ragged]:
+        tables = random_tables(shape[1], gen, dev)
+        x32 = torch.randn(shape, generator=cuda_gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for d in (0, 1):
+                got = dsbn_prelu(x, *tables, d, alpha)
+                want = dsbn_prelu_reference(x, *tables, d, alpha)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == x.shape,
+                      'kernel output dtype/shape at {0}'.format(shape))
+                err = (got.float() - want.float()).abs()
+                tol = TOL[dtype]
+                check(bool((err <= tol + tol * want.float().abs()).all()),
+                      'kernel disagrees with plain at {0} {1} domain {2}: '
+                      'max abs err {3}'.format(shape, dtype, d,
+                                               err.max().item()))
+                max_err[dtype] = max(max_err[dtype], err.max().item())
+            ms = cuda_ms(lambda: dsbn_prelu(x, *tables, DOMAIN, alpha))
+            bound = 2 * x.numel() * x.element_size() / rate * 1e3
+            rows[(shape, dtype)] = {'ms': ms, 'bound_ms': bound}
+            print('kernel {0} {1}: {2:.4f} ms, bound {3:.4f} ms ({4:.0%}), '
+                  'max abs err {5:.3g}'.format(
+                      list(shape), str(dtype).split('.')[-1], ms, bound,
+                      bound / ms, max_err[dtype]))
+        del x32, x
+    big = shapes[0]
+    tables = random_tables(big[1], gen, dev)
+    x = torch.randn(big, generator=cuda_gen, device=dev)
+    plain_ms = cuda_ms(lambda: dsbn_prelu_reference(x, *tables, DOMAIN,
+                                                    alpha))
+    g, b, m, v = (t[DOMAIN] for t in tables)
+    yard_ms = cuda_ms(lambda: F.prelu(
+        F.batch_norm(x, m, v, g, b, False, 0.0, 1e-5), alpha))
+    print('kernel {0} float32: plain {1:.4f} ms, F.batch_norm+F.prelu '
+          '{2:.4f} ms'.format(list(big), plain_ms, yard_ms))
+    return rows, max_err, big, plain_ms, yard_ms
+
+
+def init_random_(net, seed):
+    """Seeded weights at a trained net's scales: He-normal convs, BN
+    affine near identity, running statistics away from 0/1."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in list(net.named_parameters()) + list(
+                net.named_buffers()):
+            if name.endswith('num_batches_tracked'):
+                continue
+            if name.endswith('running_var'):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+            elif name.endswith('running_mean'):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            elif '.bns.' in name and name.endswith('weight'):
+                p.copy_(torch.rand(p.shape, generator=gen) * 0.4 + 0.8)
+            elif name.endswith('bias'):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+            elif 'relu_' in name:
+                p.fill_(0.25)
+            else:                        # conv / transposed-conv weights
+                fan_in = (p.shape[0] if '.trans' in name
+                          else p[0].numel())
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * (2.0 / fan_in) ** 0.5)
+
+
+def forward_phase(dev):
+    from fpl_plus_torch.models.dsbn import DomainBatchNorm
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    net = create_network(NET_CFG).eval()
+    init_random_(net, SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    x = torch.randn((1, 1) + tuple(WINDOW), generator=gen)
+    seen, macs = [], [0]
+
+    def count_macs(mod, args, out):
+        # each output element of a conv is in_channels x taps MACs; a
+        # k=2/s=2 transposed conv spreads each input element over
+        # out_channels x taps outputs once
+        n = out.numel() if isinstance(mod, CONVS) else args[0].numel()
+        macs[0] += n * mod.weight[0].numel()
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)))
+        for m in net.modules() if isinstance(m, DomainBatchNorm)]
+    hooks += [m.register_forward_hook(count_macs) for m in net.modules()
+              if isinstance(m, CONVS + TRANSPOSED)]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        want = net(x, DOMAIN)
+        for h in hooks:
+            h.remove()
+        check(seen == dsbn_shapes(1), 'DSBN launch shapes {0} != {1}'.format(
+            seen, dsbn_shapes(1)))
+        before = dsbn_prelu.launches
+        got = copy.deepcopy(net).to(dev)(x.to(dev), DOMAIN).cpu()
+        check(dsbn_prelu.launches - before == 18,
+              'forward launched the kernel {0} times, not 18'.format(
+                  dsbn_prelu.launches - before))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = flags
+    check(bool(torch.isfinite(got).all()), 'non-finite logits on the card')
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print('forward {0} f32 TF32-off: card vs CPU max abs err {1:.3g} '
+          '(|logit| max {2:.3g}, tolerance {3} x max(1, |logit|))'.format(
+              list(x.shape), err, scale, FWD_TOL))
+    check(err <= FWD_TOL * max(1.0, scale), 'forward disagrees')
+    print('network: {0:.3f} GMAC per window forward (counted from the '
+          'module shapes)'.format(macs[0] / 1e9))
+    return net, macs[0]
+
+
+def write_workspace(root, net):
+    from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_nifti
+    rs = np.random.RandomState(SEED)
+    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(0.4, 0.4, 1.5),
+                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
+    os.makedirs(os.path.join(root, 'img'))
+    names = []
+    for case in range(N_VOLUMES):
+        vol = rs.normal(100.0, 20.0, size=VOLUME).astype(np.float32)
+        vol[12:28, 60:100, 100:170] += 80.0
+        name = 'img/case{0}.nii.gz'.format(case)
+        write_nifti(NiftiImage(vol, geom), os.path.join(root, name))
+        names.append(name)
+    with open(os.path.join(root, 'target_test.csv'), 'w') as f:
+        f.write('image\n' + '\n'.join(names) + '\n')
+    ckpt_dir = os.path.join(root, 'model', 'gen')
+    os.makedirs(ckpt_dir)
+    torch.save({'iteration': 100, 'valid_pred': 0.0,
+                'model_state_dict': net.state_dict()},
+               os.path.join(ckpt_dir, 'gen_100.pt'))
+    with open(os.path.join(ckpt_dir, 'gen_latest.txt'), 'w') as f:
+        f.write('100')
+    return names
+
+
+def serving_phase(root, net):
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer, window_grid
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.models.unet2d5_dsbn import UNet2D5DSBN
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    names = write_workspace(root, net)
+    windows = len(window_grid(VOLUME, WINDOW, WINDOW))   # 12
+    fwd_per_volume = -(-windows // PATCH_CHUNK)
+    vol_ms, forwards = [], [0]
+    run = Inferer.run
+
+    def timed_run(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(self, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        vol_ms.append(start.elapsed_time(end))
+        return out
+
+    def count_forward(module, args, out):
+        if isinstance(module, UNet2D5DSBN):
+            forwards[0] += 1
+
+    results = {}
+    Inferer.run = timed_run
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        count_forward)
+    for precision in ('float32', 'bfloat16'):
+        out = 'out_' + precision
+        cfg = os.path.join(root, precision + '.cfg')
+        with open(cfg, 'w') as f:
+            f.write(CFG.format(root=root, out=out, precision=precision))
+        del vol_ms[:]
+        forwards[0] = 0
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['test', cfg])
+        launches = dsbn_prelu.launches
+        check(rc == 0, 'test stage rc {0}'.format(rc))
+        check(forwards[0] == N_VOLUMES * fwd_per_volume,
+              '{0} forwards, expected {1}'.format(
+                  forwards[0], N_VOLUMES * fwd_per_volume))
+        check(launches == 18 * forwards[0],
+              '{0} kernel launches for {1} forwards'.format(launches,
+                                                            forwards[0]))
+        labels = []
+        for name in names:
+            path = os.path.join(root, out, 'gen_target_test',
+                                os.path.basename(name))
+            lab = load_image_as_nd_array(path)['data_array']
+            check(lab.shape == (1,) + VOLUME and lab.dtype == np.uint8,
+                  'label {0} {1}'.format(lab.shape, lab.dtype))
+            check(set(np.unique(lab).tolist()) <= {0, 1},
+                  'labels outside {0, 1}')
+            labels.append(lab)
+        results[precision] = {'vol_ms': list(vol_ms), 'launches': launches,
+                              'forwards': forwards[0], 'labels': labels}
+        print('serving {0}: {1} volumes through fpl_plus_torch.cli, '
+              'Inferer.run ms per volume {2}, {3} forwards, {4} kernel '
+              'launches, foreground share {5:.4f}'.format(
+                  precision, len(labels),
+                  ['{0:.2f}'.format(t) for t in vol_ms], forwards[0],
+                  launches, float(np.mean([lb.mean() for lb in labels]))))
+    hook.remove()
+    Inferer.run = run
+    agree = np.mean([np.mean(a == b) for a, b in zip(
+        results['float32']['labels'], results['bfloat16']['labels'])])
+    print('serving: bf16 labels agree with f32 on {0:.5f} of voxels'.format(
+        agree))
+    return results, fwd_per_volume
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import fpl_plus_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device('cuda', 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print('device: {0}, torch {1}, CUDA {2}'.format(
+        kind, torch.__version__, torch.version.cuda))
+    print(smi)
+    rate = memory_rate(kind)
+    print('memory rate for bounds: {0:.3g} B/s (data sheet)'.format(rate))
+
+    rows, max_err, big, plain_ms, yard_ms = kernel_phase(dev, rate)
+    net, macs = forward_phase(dev)
+    os.makedirs(os.path.join(REPO, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as ws:
+        serving, fwd_per_volume = serving_phase(ws, net)
+    flop_per_volume = 2 * macs * BATCH * fwd_per_volume
+
+    launch_shapes = dsbn_shapes(BATCH)
+    per_volume = {}
+    for precision, dtype in (('float32', torch.float32),
+                             ('bfloat16', torch.bfloat16)):
+        k_ms = fwd_per_volume * sum(rows[(s, dtype)]['ms']
+                                    for s in launch_shapes)
+        b_ms = fwd_per_volume * sum(rows[(s, dtype)]['bound_ms']
+                                    for s in launch_shapes)
+        v_ms = float(np.median(serving[precision]['vol_ms']))
+        per_volume[precision] = (k_ms, b_ms, v_ms)
+        print('per volume {0}: Inferer.run median {1:.2f} ms; kernel {2:.3f} '
+              'ms ({3:.1%} of it) for {4} launches; kernel bound {5:.3f} ms; '
+              'conv {6:.2f} TFLOP per volume, {7:.1f} TFLOP/s over the run'
+              .format(precision, v_ms, k_ms, k_ms / v_ms,
+                      18 * fwd_per_volume, b_ms, flop_per_volume / 1e12,
+                      flop_per_volume / v_ms / 1e9))
+    entry = {
+        'name': 'dsbn_prelu', 'route': 'triton', 'source': SOURCE,
+        'replaces': REPLACES,
+        'launches': sum(serving[p]['launches'] for p in serving),
+        'max_abs_err': max_err[torch.float32],
+        'max_abs_err_bf16': max_err[torch.bfloat16],
+        'shape': list(big), 'dtype': 'float32',
+        'ms': rows[(big, torch.float32)]['ms'], 'plain_ms': plain_ms,
+        'bound_ms': rows[(big, torch.float32)]['bound_ms'],
+        'bound_by': 'bytes', 'library_ms': None, 'yardstick_ms': yard_ms,
+        'launches_per_volume': 18 * fwd_per_volume,
+        'ms_per_volume': {p: v[0] for p, v in per_volume.items()},
+        'bound_ms_per_volume': {p: v[1] for p, v in per_volume.items()},
+        'volume_ms': {p: v[2] for p, v in per_volume.items()},
+    }
+    print(json.dumps({'kernels': [entry]}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

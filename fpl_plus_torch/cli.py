@@ -1,0 +1,65 @@
+"""Command-line entry point.
+
+``python -m fpl_plus_torch.cli {test,inference} cfg [--device cpu]`` mirrors
+the FPL+ runner (PyMIC/pymic/net_run_dsbn/net_run.py:11-43): parse and
+synchronize the config, set up file+stdout logging in ``ckpt_save_dir`` and
+run the stage agent. It runs on the card (``cuda:0``) unless ``--device``
+(or ``main(..., device=...)``) names another device; without a card and
+without ``--device cpu`` it raises. ``train`` is not yet ported.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+from fpl_plus_torch.config.parser import (logging_config, parse_config,
+                                          synchronize_config)
+from fpl_plus_torch.device import resolve_device
+from fpl_plus_torch.utils.precision import apply_matmul_precision
+
+
+def _setup_logging(log_path: str) -> None:
+    os.makedirs(os.path.dirname(log_path) or '.', exist_ok=True)
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    root.addHandler(logging.FileHandler(log_path, mode='a'))
+    root.addHandler(logging.StreamHandler(sys.stdout))
+
+
+def main(argv=None, device=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    parser = argparse.ArgumentParser(prog='python -m fpl_plus_torch.cli')
+    parser.add_argument('stage', choices=('train', 'test', 'inference'))
+    parser.add_argument('cfg')
+    parser.add_argument('--device', default=None,
+                        help='cuda[:i] (default cuda:0) or cpu')
+    args = parser.parse_args(argv)
+    if args.stage == 'train':
+        raise NotImplementedError(
+            'the train stage is not yet ported (training slice, ROADMAP.md)')
+    if not os.path.isfile(args.cfg):
+        raise ValueError('The config file does not exist: {0}'.format(
+            args.cfg))
+    dev = resolve_device(device if device is not None else args.device)
+    config = synchronize_config(parse_config(args.cfg))
+    apply_matmul_precision(config, args.stage)
+    log_dir = config['training']['ckpt_save_dir']
+    os.makedirs(log_dir, exist_ok=True)
+    _setup_logging('{0}/log_{1}.txt'.format(log_dir, args.stage))
+    logging_config(config)
+
+    task = config['dataset'].get('task_type', 'seg')
+    if task != 'seg':
+        raise NotImplementedError('task_type {0} is not yet ported'.format(
+            task))
+    SegmentationAgent(config, args.stage, dev).run()
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

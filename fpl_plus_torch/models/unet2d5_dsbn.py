@@ -1,0 +1,168 @@
+"""UNet2D5 with Domain-Specific Batch Norm, the FPL+ flagship network.
+
+Architecture parity with the reference net
+(PyMIC/pymic/net/net3d/unet2d5_dsbn.py:48-309): a 2.5D U-Net with 5
+resolution levels whose per-level conv dimension is configurable
+(``conv_dims``, e.g. [2,2,3,3,3]); 2D levels run slice-wise by folding depth
+into the batch axis and downsample only H/W, 3D levels downsample D/H/W;
+every conv is followed by DSBN + PReLU (dropout between the two convs of a
+block); decoder upsampling is a 1x1 conv + align-corners linear upsample
+(``bilinear=True``) or a k=2/s=2 transposed conv; the head is a Conv3d with
+kernel (1,3,3).
+
+Module names are the reference checkpoint keys (``block{i}.conv.conv{D}d_{j}``,
+``bn{D}d{j}.bns.{d}``, ``relu_{j}``, ``up{j}.trans{D}d`` / ``up{j}.conv{D}d``,
+``out_conv``), so reference ``.pt`` state dicts load with ``strict=True``.
+Unlike the reference, a block allocates only the conv dimension it uses.
+Only eval mode is ported (``models/dsbn.py``).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from fpl_plus_torch.models.common import (PReLU, fold_depth_to_batch,
+                                          max_pool, unfold_depth_from_batch,
+                                          upsample_align_corners)
+from fpl_plus_torch.models.dsbn import DomainBatchNorm
+
+
+def _conv(dim: int):
+    return nn.Conv2d if dim == 2 else nn.Conv3d
+
+
+class ConvBlockND(nn.Module):
+    """Two (conv -> DSBN -> PReLU) stages with dropout between them."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_domains: int, dim: int, dropout_p: float = 0.0):
+        super().__init__()
+        t = '{0}d'.format(dim)
+        self._names = [('conv{0}_{1}'.format(t, j), 'bn{0}{1}'.format(t, j),
+                        'relu_{0}'.format(j)) for j in (1, 2)]
+        for j, (conv, bn, relu) in enumerate(self._names):
+            setattr(self, conv, _conv(dim)(in_channels if j == 0
+                                           else out_channels,
+                                           out_channels, 3, padding=1))
+            setattr(self, bn, DomainBatchNorm(out_channels, num_domains))
+            setattr(self, relu, PReLU())
+        self.dropout = nn.Dropout(dropout_p)
+
+    def forward(self, x, domain: int):
+        for j, (conv, bn, relu) in enumerate(self._names):
+            if j == 1:
+                x = self.dropout(x)
+            x = getattr(self, conv)(x)
+            x = getattr(self, bn)(x, domain, getattr(self, relu).weight)
+        return x
+
+
+class DownBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, num_domains: int,
+                 dim: int, dropout_p: float = 0.0, downsample: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.downsample = downsample
+        self.conv = ConvBlockND(in_channels, out_channels, num_domains, dim,
+                                dropout_p)
+
+    def forward(self, x, domain: int):
+        fold = self.dim == 2 and x.dim() == 5
+        if fold:
+            x, nd = fold_depth_to_batch(x)
+        out = self.conv(x, domain)
+        out_d = max_pool(out, 2) if self.downsample else None
+        if fold:
+            out = unfold_depth_from_batch(out, nd)
+            if out_d is not None:
+                out_d = unfold_depth_from_batch(out_d, nd)
+        return out, out_d
+
+
+class UpBlock(nn.Module):
+    def __init__(self, in_channels: int, skip_channels: int,
+                 out_channels: int, num_domains: int, dim: int,
+                 dropout_p: float = 0.0, bilinear: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.bilinear = bilinear
+        t = '{0}d'.format(dim)
+        if bilinear:
+            self._up = 'conv' + t
+            setattr(self, self._up,
+                    _conv(dim)(in_channels, skip_channels, 1))
+        else:
+            self._up = 'trans' + t
+            trans = nn.ConvTranspose2d if dim == 2 else nn.ConvTranspose3d
+            setattr(self, self._up,
+                    trans(in_channels, skip_channels, 2, stride=2))
+        self.conv = ConvBlockND(2 * skip_channels, out_channels, num_domains,
+                                dim, dropout_p)
+
+    def forward(self, x1, x2, domain: int):
+        # x1: low-res decoder feature; x2: high-res encoder skip
+        fold = self.dim == 2 and x1.dim() == 5
+        if fold:
+            x1, nd = fold_depth_to_batch(x1)
+            x2, _ = fold_depth_to_batch(x2)
+        x1 = getattr(self, self._up)(x1)
+        if self.bilinear:
+            x1 = upsample_align_corners(x1, 2)
+        out = self.conv(torch.cat([x2, x1], dim=1), domain)
+        if fold:
+            out = unfold_depth_from_batch(out, nd)
+        return out
+
+
+class UNet2D5DSBN(nn.Module):
+    """forward(x [N,C,D,H,W], domain int) -> logits [N,class_num,D,H,W]."""
+
+    def __init__(self, in_chns: int, feature_chns: Sequence[int],
+                 conv_dims: Sequence[int], dropout: Sequence[float],
+                 class_num: int, bilinear: bool = False,
+                 num_domains: int = 2):
+        super().__init__()
+        ft, dims, dp, nd = (list(feature_chns), list(conv_dims),
+                            list(dropout), num_domains)
+        if not len(ft) == len(dims) == len(dp) == 5:
+            raise ValueError('UNet2D5 needs 5 levels of feature_chns, '
+                             'conv_dims and dropout')
+        self.block0 = DownBlock(in_chns, ft[0], nd, dims[0], dp[0])
+        self.block1 = DownBlock(ft[0], ft[1], nd, dims[1], dp[1])
+        self.block2 = DownBlock(ft[1], ft[2], nd, dims[2], dp[2])
+        self.block3 = DownBlock(ft[2], ft[3], nd, dims[3], dp[3])
+        self.block4 = DownBlock(ft[3], ft[4], nd, dims[4], dp[4],
+                                downsample=False)
+        self.up1 = UpBlock(ft[4], ft[3], ft[3], nd, dims[3], dp[3], bilinear)
+        self.up2 = UpBlock(ft[3], ft[2], ft[2], nd, dims[2], dp[2], bilinear)
+        self.up3 = UpBlock(ft[2], ft[1], ft[1], nd, dims[1], dp[1], bilinear)
+        self.up4 = UpBlock(ft[1], ft[0], ft[0], nd, dims[0], dp[0], bilinear)
+        self.out_conv = nn.Conv3d(ft[0], class_num, (1, 3, 3),
+                                  padding=(0, 1, 1))
+
+    def forward(self, x, domain_label: int = 0):
+        x0, x0_d = self.block0(x, domain_label)
+        x1, x1_d = self.block1(x0_d, domain_label)
+        x2, x2_d = self.block2(x1_d, domain_label)
+        x3, x3_d = self.block3(x2_d, domain_label)
+        x4, _ = self.block4(x3_d, domain_label)
+        y = self.up1(x4, x3, domain_label)
+        y = self.up2(y, x2, domain_label)
+        y = self.up3(y, x1, domain_label)
+        y = self.up4(y, x0, domain_label)
+        return self.out_conv(y)
+
+
+class UNet2D5(UNet2D5DSBN):
+    """Plain-BN UNet2D5 (reference net3d/unet2d5.py) = DSBN with one bank."""
+
+    def __init__(self, in_chns: int, feature_chns: Sequence[int],
+                 conv_dims: Sequence[int], dropout: Sequence[float],
+                 class_num: int, bilinear: bool = False):
+        super().__init__(in_chns, feature_chns, conv_dims, dropout,
+                         class_num, bilinear, num_domains=1)
+
+    def forward(self, x, domain_label: int = 0):
+        return super().forward(x, 0)

@@ -1,0 +1,65 @@
+"""Transform base class and shared helpers.
+
+Transforms operate on the sample dict contract (keys: ``image``, ``label``,
+``pixel_weight``, ``image1``, ``names``, geometry metadata, and
+JSON-encoded ``<Name>_Param`` entries recording the parameters of each
+transform's inverse). Mirrors the reference transform
+protocol (PyMIC/pymic/transform/abstract_transform.py:4-14).
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+
+class AbstractTransform(object):
+    inverse = False
+    _param_prefix = None  # default: class name
+
+    def __init__(self, params):
+        self.params = params
+        self.task = params.get('task', 'segmentation')
+
+    def __call__(self, sample):
+        return sample
+
+    def inverse_selection(self, sample):
+        """When this transform's prediction inverse is a PURE spatial
+        selection — it keeps a contiguous sub-window of the prediction and
+        synthesizes no voxels (e.g. Pad's inverse crop) — return its
+        ``(margin_lower, margin_upper)`` per spatial axis for this sample;
+        otherwise None. Lets the agent fold the inverse-transform chain
+        into one crop of the label map computed on the device."""
+        return None
+
+    # -- helpers ----------------------------------------------------------
+    def param(self, name, default=..., ):
+        """Fetch ``<Prefix>_<name>`` (lower-cased) from the config params."""
+        prefix = self._param_prefix or type(self).__name__
+        key = '{0}_{1}'.format(prefix, name).lower()
+        if default is ...:
+            return self.params[key]
+        return self.params.get(key, default)
+
+    def store_inverse_param(self, sample, value):
+        sample['{0}_Param'.format(type(self).__name__)] = json.dumps(value)
+        return sample
+
+    def load_inverse_param(self, sample):
+        raw = sample['{0}_Param'.format(type(self).__name__)]
+        # after dataloader collation the JSON string arrives wrapped in a list
+        if isinstance(raw, (list, tuple, np.ndarray)):
+            raw = raw[0]
+        return json.loads(raw)
+
+
+def apply_spatial(sample, fn, task):
+    """Apply ``fn`` to sample['image'] and (for segmentation) to the other
+    spatial keys."""
+    sample['image'] = fn(sample['image'])
+    if task == 'segmentation':
+        for key in ('label', 'pixel_weight', 'image1'):
+            if key in sample:
+                sample[key] = fn(sample[key])
+    return sample

@@ -1,0 +1,45 @@
+"""Intensity normalization (reference PyMIC/pymic/transform/normalize.py):
+per-channel z-score with optional non-positive-region randomization."""
+from __future__ import annotations
+
+import numpy as np
+
+from fpl_plus_torch.transforms.abstract import AbstractTransform
+
+
+def _zscore_channels(image, chns, means, stds, ignore_non_positive):
+    for i, chn in enumerate(chns):
+        mean, std = means[i], stds[i]
+        if mean is None:
+            if ignore_non_positive:
+                pixels = image[chn][image[chn] > 0]
+                mean, std = pixels.mean(), pixels.std()
+            else:
+                mean, std = image[chn].mean(), image[chn].std()
+        norm = (image[chn] - mean) / std
+        if ignore_non_positive:
+            rnd = np.random.normal(0, 1, size=norm.shape)
+            norm[image[chn] <= 0] = rnd[image[chn] <= 0]
+        image[chn] = norm
+    return image
+
+
+class NormalizeWithMeanStd(AbstractTransform):
+    _param_prefix = 'NormalizeWithMeanStd'
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.chns = self.param('channels')
+        self.mean = self.param('mean', None)
+        self.std = self.param('std', None)
+        self.ignore_np = self.param('ignore_non_positive', False)
+        self.inverse = self.param('inverse', False)
+
+    def __call__(self, sample):
+        image = sample['image']
+        chns = self.chns if self.chns is not None else range(image.shape[0])
+        means = self.mean if self.mean is not None else [None] * len(list(chns))
+        stds = self.std if self.std is not None else [None] * len(list(chns))
+        sample['image'] = _zscore_channels(image, list(chns), means, stds,
+                                           self.ignore_np)
+        return sample

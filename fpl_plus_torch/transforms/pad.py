@@ -1,0 +1,47 @@
+"""Pad transform with invertible margin recording.
+
+Behavior parity: reference PyMIC/pymic/transform/pad.py:103-192 — reflect-pad
+each spatial axis up to ``output_size`` (or the next multiple when
+``ceil_mode``), record (margin_lower, margin_upper), inverse crops the
+margins off the prediction volume (``inverse_selection``).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from fpl_plus_torch.transforms.abstract import AbstractTransform, apply_spatial
+
+
+class Pad(AbstractTransform):
+    def __init__(self, params):
+        super().__init__(params)
+        self.output_size = self.param('output_size')
+        self.ceil_mode = self.param('ceil_mode', False)
+        self.inverse = self.param('inverse', True)
+
+    def __call__(self, sample):
+        input_shape = sample['image'].shape
+        spatial_shape = input_shape[1:]
+        assert len(self.output_size) == len(spatial_shape)
+        if self.ceil_mode:
+            output_size = [int(math.ceil(float(s) / o)) * o
+                           for s, o in zip(spatial_shape, self.output_size)]
+        else:
+            output_size = self.output_size
+        margin = [max(0, o - s) for o, s in zip(output_size, spatial_shape)]
+        margin_lower = [m // 2 for m in margin]
+        margin_upper = [m - lo for m, lo in zip(margin, margin_lower)]
+        self.store_inverse_param(sample, (margin_lower, margin_upper))
+        if max(margin) == 0:
+            return sample
+        pad = tuple([(0, 0)] + list(zip(margin_lower, margin_upper)))
+
+        def do_pad(arr):
+            return np.pad(arr, pad, 'reflect')
+        return apply_spatial(sample, do_pad, self.task)
+
+    def inverse_selection(self, sample):
+        # the prediction inverse is exactly a crop by the recorded margins
+        return tuple(self.load_inverse_param(sample))

@@ -1,0 +1,21 @@
+"""Transform registry (parity with reference trans_dict.py:42-66), holding
+the transforms ported so far: the test-stage chain."""
+from __future__ import annotations
+
+from fpl_plus_torch.transforms.normalize import NormalizeWithMeanStd
+from fpl_plus_torch.transforms.pad import Pad
+
+TransformDict = {
+    'NormalizeWithMeanStd': NormalizeWithMeanStd,
+    'Pad': Pad,
+}
+
+
+class Compose(object):
+    def __init__(self, transforms):
+        self.transforms = transforms
+
+    def __call__(self, sample):
+        for t in self.transforms:
+            sample = t(sample)
+        return sample

@@ -1,0 +1,95 @@
+"""Weight bridge: JAX-package UNet2D5_dsbn variables -> this package's
+state dict (the reference PyTorch key layout).
+
+The JAX variables arrive as nested dicts of numpy arrays (``params`` and
+``batch_stats``), so no JAX is needed here. The mapping is the reference
+layout of ``utils/torch_convert.py`` in the JAX package:
+
+* flax ``block{i}/conv/conv{j}`` / ``bn{j}`` / ``act{j}`` ->
+  ``block{i}.conv.conv{D}d_{j}`` / ``bn{D}d{j}.bns.{d}`` / ``relu_{j}``, D the
+  block's conv dimension from ``conv_dims`` (only that dimension is emitted:
+  this package allocates no unused copies);
+* ``up{j}/proj`` -> ``up{j}.conv{D}d`` (bilinear), ``up{j}/up`` ->
+  ``up{j}.trans{D}d`` (transposed conv);
+* conv kernels ``[*k, in, out]`` -> ``[out, in, *k]``; transposed-conv
+  kernels ``[*k, in, out]`` -> ``[in, out, *k]`` with the taps spatially
+  flipped (flax's ConvTranspose without ``transpose_kernel`` is a
+  fractionally strided conv, which for k=2/s=2 equals torch's
+  gradient-style transpose after the flip);
+* DSBN rows ``[n_domains, C]`` split into per-domain banks; the scalar PReLU
+  ``alpha`` becomes ``weight`` of shape [1].
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _conv_kernel(w) -> np.ndarray:
+    """flax conv kernel [*k, in, out] -> torch [out, in, *k]."""
+    w = np.asarray(w)
+    k = w.ndim - 2
+    return np.transpose(w, (k + 1, k) + tuple(range(k)))
+
+
+def _conv_transpose_kernel(w) -> np.ndarray:
+    """flax ConvTranspose kernel [*k, in, out] -> torch [in, out, *k],
+    taps spatially flipped."""
+    w = np.asarray(w)
+    k = w.ndim - 2
+    w = np.transpose(w, (k, k + 1) + tuple(range(k)))
+    return np.flip(w, axis=tuple(range(2, w.ndim)))
+
+
+def state_dict_from_jax(params: Dict, batch_stats: Dict,
+                        net_cfg: Dict) -> Dict[str, torch.Tensor]:
+    """JAX UNet2D5_dsbn / UNet2D5 ``(params, batch_stats)`` -> a state dict
+    that ``UNet2D5DSBN.load_state_dict(..., strict=True)`` accepts."""
+    dims = list(net_cfg['conv_dims'])
+    bilinear = net_cfg.get('bilinear', False)
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_block(prefix, p, s, dim):
+        t = '{0}d'.format(dim)
+        for j in (1, 2):
+            conv = p['conv{0}'.format(j)]
+            sd['{0}.conv{1}_{2}.weight'.format(prefix, t, j)] = \
+                _conv_kernel(conv['kernel'])
+            sd['{0}.conv{1}_{2}.bias'.format(prefix, t, j)] = conv['bias']
+            bn_p, bn_s = p['bn{0}'.format(j)], s['bn{0}'.format(j)]
+            for dom in range(np.shape(bn_p['scale'])[0]):
+                base = '{0}.bn{1}{2}.bns.{3}'.format(prefix, t, j, dom)
+                sd[base + '.weight'] = np.asarray(bn_p['scale'])[dom]
+                sd[base + '.bias'] = np.asarray(bn_p['bias'])[dom]
+                sd[base + '.running_mean'] = np.asarray(bn_s['mean'])[dom]
+                sd[base + '.running_var'] = np.asarray(bn_s['var'])[dom]
+                sd[base + '.num_batches_tracked'] = np.asarray(0, np.int64)
+            sd['{0}.relu_{1}.weight'.format(prefix, j)] = np.reshape(
+                p['act{0}'.format(j)]['alpha'], (1,))
+
+    for i in range(5):
+        name = 'block{0}'.format(i)
+        put_block(name + '.conv', params[name]['conv'],
+                  batch_stats[name]['conv'], dims[i])
+    for j, lvl in enumerate([3, 2, 1, 0]):
+        name = 'up{0}'.format(j + 1)
+        t = '{0}d'.format(dims[lvl])
+        p_up = params[name]
+        if bilinear:
+            sd['{0}.conv{1}.weight'.format(name, t)] = \
+                _conv_kernel(p_up['proj']['kernel'])
+            sd['{0}.conv{1}.bias'.format(name, t)] = p_up['proj']['bias']
+        else:
+            sd['{0}.trans{1}.weight'.format(name, t)] = \
+                _conv_transpose_kernel(p_up['up']['kernel'])
+            sd['{0}.trans{1}.bias'.format(name, t)] = p_up['up']['bias']
+        put_block(name + '.conv', p_up['conv'], batch_stats[name]['conv'],
+                  dims[lvl])
+    sd['out_conv.weight'] = _conv_kernel(params['out_conv']['kernel'])
+    sd['out_conv.bias'] = params['out_conv']['bias']
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64
+                                         if k.endswith('num_batches_tracked')
+                                         else np.float32))
+            for k, v in sd.items()}
