@@ -18,13 +18,35 @@ It builds the port's Triton kernel from this checkout (cache under
 4. serving: the pseudo-label test stage through ``fpl_plus_torch.cli.main``
    on 3 seeded 40x160x272 NIfTI volumes with the phase-3 weights saved as a
    reference-layout ``.pt`` checkpoint, at f32 and at bf16; the launch counter
-   must equal 18 x the network forwards of each run.
+   must equal 18 x the network forwards of each run;
+5. main-path kernel shapes: the kernel against its plain version at every
+   shape of the FPL pass's forwards (batch 48 = 6 passes x 4 flips x
+   patch_chunk 2) and of batched serving's (batch 24 = 3 volumes x 4 flips
+   x patch_chunk 2), both dtypes and both domains, with times and byte
+   bounds;
+6. fold: 6 MC-dropout passes folded into one batched inference against 6
+   sequential passes under the same card generators, full width, TF32 off;
+   then the FPL reduction of those logits on the card against the CPU;
+7. fpl: the ``fpl = True`` stage through ``fpl_plus_torch.cli.main`` on the
+   phase-4 volumes at f32 and bf16: a sorted ``.npy`` of 3 finite entries,
+   3 x 6 network forwards, 18 launches each; CUDA-event time of the pass per
+   volume and peak device memory;
+8. batched: ``test_batch_size = 3`` serving through the CLI, timed, labels
+   against the phase-4 per-volume labels; then with TF32 off, batched
+   against per-volume labels;
+9. tools: ``python -m fpl_plus_torch.fpl pixel-weight`` (f32 vs bf16 labels)
+   and ``image-weight`` (the f32 ``.npy``) into the weighted train CSV.
 
-Then it prints one ``{"kernels": [...]}`` line and, last, the ok line. It
-imports nothing of the JAX package. Without a card, or without the
-``fpl_plus_torch`` package beside it, it exits non-zero and prints no result.
+Each main-path run (phases 4, 7, 8) sets the launch counter to 0 just before
+it and reads it just after. Then it prints one ``{"kernels": [...]}`` line
+and, last, the ok line. It imports nothing of the JAX package. Without a
+card, or without the ``fpl_plus_torch`` package beside it, it exits non-zero
+and prints no result.
 """
+import contextlib
 import copy
+import csv
+import functools
 import json
 import os
 import subprocess
@@ -47,6 +69,10 @@ N_VOLUMES = 3
 PATCH_CHUNK = 2
 TTA_VARIANTS = 4
 BATCH = TTA_VARIANTS * PATCH_CHUNK
+FPL_PASSES = 6
+FPL_BATCH = FPL_PASSES * BATCH           # the FPL pass's forward batch
+SERVE_BATCH = 3                          # test_batch_size of phase 8
+FOLD_VOLUME = (28, 128, 256)             # phase 6: 2 windows, one chunk
 DOMAIN = 1
 SEED = 20261016
 # tolerances: f32 -- the same f32 arithmetic, rsqrt/division rounded by
@@ -55,8 +81,19 @@ SEED = 20261016
 # straddle a rounding boundary
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # forward phase, f32 with TF32 off: cuDNN and the CPU sum ~20 convolution
-# layers in different orders
+# layers in different orders (phase 6: cuDNN at batch 48 vs batch 8)
 FWD_TOL = 1e-3
+# phase 6 reduction, card vs CPU on the same logits: vars_sum sums ~2 M f32
+# terms in other orders; a voxel whose entropy term sits within an ulp of
+# the 0.01 threshold may count on one side only
+REDUCE_RTOL = 1e-4
+REDUCE_COUNT_TOL = 1e-5
+# phase 8, batched vs per-volume labels with TF32 off (f32 arithmetic, other
+# summation orders); with TF32 on, batch 24 vs batch 8 takes other cuDNN
+# algorithms whose TF32 rounding flips the near-ties that random weights
+# leave between the two logits (0.99967 measured on the H100)
+BATCH_AGREE = 0.9999
+BATCH_AGREE_TF32 = 0.999
 REPLACES = 'fpl_plus_tpu/ops/pallas_fused.py:48'
 CONVS = (torch.nn.Conv2d, torch.nn.Conv3d)
 TRANSPOSED = (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
@@ -68,6 +105,7 @@ task_type = seg
 root_dir = {root}
 modal_num = 1
 test_csv = {root}/target_test.csv
+test_batch_size = {batch}
 test_transform = [NormalizeWithMeanStd, Pad]
 NormalizeWithMeanStd_channels = [0]
 Pad_output_size = [28, 128, 128]
@@ -95,6 +133,7 @@ sliding_window_stride = [28, 128, 128]
 tta_mode = 1
 patch_chunk = 2
 precision = {precision}
+{extra}
 """
 
 
@@ -151,16 +190,16 @@ def random_tables(c, gen, dev):
             t(torch.rand(2, c, generator=gen) + 0.5))
 
 
-def kernel_phase(dev, rate):
+def kernel_phase(dev, rate, batch=BATCH):
     from fpl_plus_torch.ops.dsbn_prelu import (dsbn_prelu,
                                               dsbn_prelu_reference)
-    gen = torch.Generator().manual_seed(SEED)
-    cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED + batch - BATCH)
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED + batch - BATCH)
     alpha = torch.tensor([0.25], device=dev)
-    shapes = sorted(set(dsbn_shapes(BATCH)), key=lambda s: -np.prod(s))
-    ragged = (3, 96, 7, 9, 11)           # S = 693: no multiple of 16
+    shapes = sorted(set(dsbn_shapes(batch)), key=lambda s: -np.prod(s))
+    ragged = [(3, 96, 7, 9, 11)] if batch == BATCH else []   # S = 693
     rows, max_err = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for shape in shapes + [ragged]:
+    for shape in shapes + ragged:
         tables = random_tables(shape[1], gen, dev)
         x32 = torch.randn(shape, generator=cuda_gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -178,6 +217,7 @@ def kernel_phase(dev, rate):
                       'max abs err {3}'.format(shape, dtype, d,
                                                err.max().item()))
                 max_err[dtype] = max(max_err[dtype], err.max().item())
+                del got, want, err
             ms = cuda_ms(lambda: dsbn_prelu(x, *tables, DOMAIN, alpha))
             bound = 2 * x.numel() * x.element_size() / rate * 1e3
             rows[(shape, dtype)] = {'ms': ms, 'bound_ms': bound}
@@ -186,6 +226,7 @@ def kernel_phase(dev, rate):
                       list(shape), str(dtype).split('.')[-1], ms, bound,
                       bound / ms, max_err[dtype]))
         del x32, x
+        torch.cuda.empty_cache()
     big = shapes[0]
     tables = random_tables(big[1], gen, dev)
     x = torch.randn(big, generator=cuda_gen, device=dev)
@@ -301,46 +342,71 @@ def write_workspace(root, net):
     return names
 
 
+@contextlib.contextmanager
+def timed_method(cls, name, sink):
+    """Record the CUDA-event ms of every call of ``cls.name`` in ``sink``."""
+    orig = getattr(cls, name)
+
+    def timed(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(self, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        sink.append(start.elapsed_time(end))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield sink
+    finally:
+        setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def counting_forwards():
+    """Count the network forwards (calls of a UNet2D5DSBN) in the block."""
+    from fpl_plus_torch.models.unet2d5_dsbn import UNet2D5DSBN
+    n = [0]
+
+    def count(module, args, out):
+        if isinstance(module, UNet2D5DSBN):
+            n[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    try:
+        yield n
+    finally:
+        hook.remove()
+
+
+def write_cfg(root, tag, precision='float32', batch=1, extra=''):
+    cfg = os.path.join(root, tag + '.cfg')
+    with open(cfg, 'w') as f:
+        f.write(CFG.format(root=root, out='out_' + tag, precision=precision,
+                           batch=batch, extra=extra))
+    return cfg
+
+
 def serving_phase(root, net):
     from fpl_plus_torch import cli
     from fpl_plus_torch.engine.infer import Inferer, window_grid
     from fpl_plus_torch.io.image_io import load_image_as_nd_array
-    from fpl_plus_torch.models.unet2d5_dsbn import UNet2D5DSBN
     from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
     names = write_workspace(root, net)
     windows = len(window_grid(VOLUME, WINDOW, WINDOW))   # 12
     fwd_per_volume = -(-windows // PATCH_CHUNK)
-    vol_ms, forwards = [], [0]
-    run = Inferer.run
-
-    def timed_run(self, *args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = run(self, *args, **kwargs)
-        end.record()
-        end.synchronize()
-        vol_ms.append(start.elapsed_time(end))
-        return out
-
-    def count_forward(module, args, out):
-        if isinstance(module, UNet2D5DSBN):
-            forwards[0] += 1
-
     results = {}
-    Inferer.run = timed_run
-    hook = torch.nn.modules.module.register_module_forward_hook(
-        count_forward)
     for precision in ('float32', 'bfloat16'):
         out = 'out_' + precision
-        cfg = os.path.join(root, precision + '.cfg')
-        with open(cfg, 'w') as f:
-            f.write(CFG.format(root=root, out=out, precision=precision))
-        del vol_ms[:]
-        forwards[0] = 0
-        dsbn_prelu.launches = 0          # the main path's count starts here
-        rc = cli.main(['test', cfg])
-        launches = dsbn_prelu.launches
+        cfg = write_cfg(root, precision, precision)
+        vol_ms = []
+        with timed_method(Inferer, 'run', vol_ms), \
+                counting_forwards() as forwards:
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['test', cfg])
+            launches = dsbn_prelu.launches
         check(rc == 0, 'test stage rc {0}'.format(rc))
         check(forwards[0] == N_VOLUMES * fwd_per_volume,
               '{0} forwards, expected {1}'.format(
@@ -358,7 +424,7 @@ def serving_phase(root, net):
             check(set(np.unique(lab).tolist()) <= {0, 1},
                   'labels outside {0, 1}')
             labels.append(lab)
-        results[precision] = {'vol_ms': list(vol_ms), 'launches': launches,
+        results[precision] = {'vol_ms': vol_ms, 'launches': launches,
                               'forwards': forwards[0], 'labels': labels}
         print('serving {0}: {1} volumes through fpl_plus_torch.cli, '
               'Inferer.run ms per volume {2}, {3} forwards, {4} kernel '
@@ -366,13 +432,223 @@ def serving_phase(root, net):
                   precision, len(labels),
                   ['{0:.2f}'.format(t) for t in vol_ms], forwards[0],
                   launches, float(np.mean([lb.mean() for lb in labels]))))
-    hook.remove()
-    Inferer.run = run
     agree = np.mean([np.mean(a == b) for a, b in zip(
         results['float32']['labels'], results['bfloat16']['labels'])])
     print('serving: bf16 labels agree with f32 on {0:.5f} of voxels'.format(
         agree))
-    return results, fwd_per_volume
+    return results, names, fwd_per_volume
+
+
+def fold_phase(dev, net):
+    """6 folded MC-dropout passes against 6 sequential ones on the card
+    (TF32 off), then the FPL reduction of those logits, card vs CPU."""
+    from fpl_plus_torch.engine.infer import Inferer, fpl_uncertainty_reduce
+    cfg = {'sliding_window_enable': True, 'sliding_window_size': WINDOW,
+           'sliding_window_stride': WINDOW, 'tta_mode': 1,
+           'patch_chunk': PATCH_CHUNK, 'output_mode': 'logits'}
+    net_dev = copy.deepcopy(net).to(dev).eval()
+    image = np.random.RandomState(SEED + 2).normal(
+        size=(1, 1) + FOLD_VOLUME).astype(np.float32)
+    seeds = np.random.SeedSequence(SEED).generate_state(FPL_PASSES)
+
+    def gens():
+        return [torch.Generator(dev).manual_seed(int(x)) for x in seeds]
+
+    def mc(generators):
+        return functools.partial(net_dev, domain_label=DOMAIN,
+                                 dropout_generators=generators)
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inferer = Inferer(cfg, dev)
+    folded = inferer.run_passes(mc(gens()), image, FPL_PASSES)
+    seq = [inferer.run(mc([g]), image) for g in gens()]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = flags
+    del net_dev
+    check(folded.shape == (FPL_PASSES, 2) + FOLD_VOLUME,
+          'folded shape {0}'.format(folded.shape))
+    check(bool(np.isfinite(folded).all()), 'non-finite folded logits')
+    err = max(float(np.abs(folded[i] - seq[i][0]).max())
+              for i in range(FPL_PASSES))
+    scale = float(np.abs(folded).max())
+    spread = float(np.abs(folded[0] - folded[1]).mean())
+    print('fold {0} passes x {1}: folded vs sequential max abs err {2:.3g} '
+          '(|logit| max {3:.3g}, tolerance {4} x max(1, |logit|)); passes 0 '
+          'and 1 differ by {5:.3g} on average'.format(
+              FPL_PASSES, list(FOLD_VOLUME), err, scale, FWD_TOL, spread))
+    check(err <= FWD_TOL * max(1.0, scale), 'fold disagrees with sequential')
+    check(spread > 0, 'dropout passes are identical')
+
+    lo, up = [2, 5, 3], [1, 0, 7]
+    logits = torch.from_numpy(folded)
+    v_dev, b_dev = fpl_uncertainty_reduce(logits.to(dev), lo, up)
+    v_cpu, b_cpu = fpl_uncertainty_reduce(logits, lo, up)
+    n_sel = int(np.prod([s - a - b for s, a, b in zip(FOLD_VOLUME, lo, up)]))
+    print('reduce: vars_sum card {0!r} CPU {1!r}; boundary card {2} CPU {3} '
+          'of {4} voxels'.format(v_dev, v_cpu, b_dev, b_cpu, n_sel))
+    check(np.isfinite(v_dev) and v_dev > 0, 'vars_sum {0}'.format(v_dev))
+    check(abs(v_dev - v_cpu) <= REDUCE_RTOL * abs(v_cpu),
+          'vars_sum card {0} vs CPU {1}'.format(v_dev, v_cpu))
+    check(abs(b_dev - b_cpu) <= max(1, REDUCE_COUNT_TOL * n_sel),
+          'boundary card {0} vs CPU {1}'.format(b_dev, b_cpu))
+    return {'err': err, 'vars_sum': (v_dev, v_cpu),
+            'boundary': (b_dev, b_cpu)}
+
+
+def fpl_phase(root, dev, names, fwd_per_volume):
+    """The ``fpl = True`` stage through the CLI at f32 and bf16."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    results = {}
+    for precision in ('float32', 'bfloat16'):
+        npy = os.path.join(root, 'fpl_{0}.npy'.format(precision))
+        cfg = write_cfg(root, 'fpl_' + precision, precision, extra=(
+            'fpl = True\nfpl_uncertainty_sorted = ' + npy))
+        ms = []
+        with timed_method(Inferer, 'run_fpl_uncertainty', ms), \
+                counting_forwards() as forwards:
+            torch.cuda.reset_peak_memory_stats(dev)
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['test', cfg])
+            launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated(dev)
+        check(rc == 0, 'fpl stage rc {0}'.format(rc))
+        check(forwards[0] == N_VOLUMES * fwd_per_volume,
+              '{0} fpl forwards, expected {1}'.format(
+                  forwards[0], N_VOLUMES * fwd_per_volume))
+        check(launches == 18 * forwards[0],
+              '{0} kernel launches for {1} fpl forwards'.format(
+                  launches, forwards[0]))
+        entries = np.load(npy, allow_pickle=True)
+        values = [float(np.asarray(e[0]).reshape(-1)[0]) for e in entries]
+        check(sorted(str(e[1]) for e in entries) == sorted(names),
+              'fpl names {0}'.format([str(e[1]) for e in entries]))
+        check(all(np.isfinite(values)) and values == sorted(values),
+              'fpl values {0}'.format(values))
+        results[precision] = {'vol_ms': ms, 'launches': launches,
+                              'forwards': forwards[0], 'peak': peak,
+                              'values': values, 'npy': npy}
+        print('fpl {0}: {1} volumes through fpl_plus_torch.cli, '
+              'run_fpl_uncertainty ms per volume {2}, {3} forwards of batch '
+              '{4}, {5} kernel launches, peak device memory {6:.2f} GiB, '
+              'uncertainties {7}'.format(
+                  precision, len(values), ['{0:.2f}'.format(t) for t in ms],
+                  forwards[0], FPL_BATCH, launches, peak / 2 ** 30, values))
+    return results
+
+
+def batched_phase(root, labels_f32, names, fwd_per_volume):
+    """``test_batch_size = 3`` serving through the CLI: twice at the
+    default settings (timed; the first call meets cuDNN's new batch size),
+    labels against phase 4's; then, with TF32 off, batched against
+    per-volume labels to ``BATCH_AGREE``."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+
+    def stage(tag, batch, extra=''):
+        cfg = write_cfg(root, tag, batch=batch, extra=extra)
+        ms = []
+        with timed_method(Inferer, 'run_batch', ms), \
+                counting_forwards() as forwards:
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['test', cfg])
+            launches = dsbn_prelu.launches
+        check(rc == 0, '{0} stage rc {1}'.format(tag, rc))
+        labels = [load_image_as_nd_array(os.path.join(
+            root, 'out_' + tag, 'gen_target_test', os.path.basename(n)))[
+            'data_array'] for n in names]
+        if batch > 1:
+            check(forwards[0] == fwd_per_volume,
+                  '{0} batched forwards, expected {1}'.format(
+                      forwards[0], fwd_per_volume))
+            check(launches == 18 * forwards[0],
+                  '{0} kernel launches for {1} batched forwards'.format(
+                      launches, forwards[0]))
+        return {'ms': ms[0] / N_VOLUMES if ms else None,
+                'launches': launches, 'forwards': forwards[0],
+                'labels': labels}
+
+    def agree(a, b):
+        return [float(np.mean(x == y)) for x, y in zip(a, b)]
+
+    runs = []
+    for rep in range(2):
+        r = stage('batch{0}'.format(rep), SERVE_BATCH)
+        r['agree'] = agree(r['labels'], labels_f32)
+        check(min(r['agree']) >= BATCH_AGREE_TF32,
+              'batched labels agree with per-volume on {0}'.format(
+                  r['agree']))
+        runs.append(r)
+        print('batched {0}: test_batch_size {1}, run_batch {2:.2f} ms per '
+              'volume, {3} forwards of batch {4}, {5} kernel launches, '
+              'labels agree with per-volume (TF32) on {6}'.format(
+                  rep, SERVE_BATCH, r['ms'], r['forwards'],
+                  SERVE_BATCH * BATCH, r['launches'], r['agree']))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        highest = 'matmul_precision = highest'
+        ref = stage('single_f32', 1, highest)
+        r = stage('batch_f32', SERVE_BATCH, highest)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    r['agree'] = agree(r['labels'], ref['labels'])
+    print('batched TF32 off: {0} forwards, {1} kernel launches, labels '
+          'agree with per-volume (TF32 off) on {2}'.format(
+              r['forwards'], r['launches'], r['agree']))
+    check(min(r['agree']) >= BATCH_AGREE,
+          'batched labels (TF32 off) agree with per-volume on {0}'.format(
+              r['agree']))
+    runs.append(r)
+    return runs
+
+
+def tools_phase(root, fpl):
+    """``python -m fpl_plus_torch.fpl`` pixel-weight and image-weight on
+    the stage outputs (host tools; run from the checkout's root)."""
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+
+    def tool(*args):
+        r = subprocess.run([sys.executable, '-m', 'fpl_plus_torch.fpl']
+                           + list(args), cwd=REPO, capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, 'fpl tool {0}: {1}'.format(
+            args[0], r.stderr[-2000:]))
+
+    labels = {p: os.path.join(root, 'out_' + p, 'gen_target_test')
+              for p in ('float32', 'bfloat16')}
+    pw = os.path.join(root, 'pixel_weight')
+    tool('pixel-weight', '--pseudo-target', labels['float32'],
+         '--pseudo-fake-source', labels['bfloat16'], '--output', pw)
+    for name in sorted(os.listdir(labels['float32'])):
+        w = load_image_as_nd_array(os.path.join(pw, name))['data_array']
+        a, b = (load_image_as_nd_array(os.path.join(labels[p], name))[
+            'data_array'] for p in ('float32', 'bfloat16'))
+        check(bool(np.array_equal(w, np.where(a != b, 0.5, 1.0))),
+              'pixel weights of {0}'.format(name))
+    out_csv = os.path.join(root, 'train_weighted.csv')
+    tool('image-weight', '--uncertainty', fpl['float32']['npy'],
+         '--output-csv', out_csv, '--image-dir', os.path.join(root, 'img'),
+         '--pseudo-label-dir', labels['float32'], '--pixel-weight-dir', pw)
+    with open(out_csv, newline='') as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == ['image', 'label', 'pixel_weight', 'image_weight'],
+          'csv header {0}'.format(rows[0]))
+    check(len(rows) == 1 + N_VOLUMES, 'csv rows {0}'.format(len(rows)))
+    for row in rows[1:]:
+        check(all(os.path.isfile(p) for p in row[:3]),
+              'csv names missing files: {0}'.format(row))
+        check(0.01 <= float(row[3]) <= 1.01 + 1e-9,
+              'image weight {0}'.format(row[3]))
+    print('tools: pixel-weight maps for {0} volumes, weighted train csv '
+          'image weights {1}'.format(N_VOLUMES, [r[3] for r in rows[1:]]))
 
 
 def main():
@@ -397,39 +673,83 @@ def main():
     net, macs = forward_phase(dev)
     os.makedirs(os.path.join(REPO, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as ws:
-        serving, fwd_per_volume = serving_phase(ws, net)
+        serving, names, fwd_per_volume = serving_phase(ws, net)
+        rows48, max_err48, big48, plain48, yard48 = kernel_phase(
+            dev, rate, FPL_BATCH)
+        rows.update(rows48)
+        rows24, max_err24 = kernel_phase(dev, rate, SERVE_BATCH * BATCH)[:2]
+        rows.update(rows24)
+        fold_phase(dev, net)
+        fpl = fpl_phase(ws, dev, names, fwd_per_volume)
+        batched = batched_phase(ws, serving['float32']['labels'], names,
+                                fwd_per_volume)
+        tools_phase(ws, fpl)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
     per_volume = {}
     for precision, dtype in (('float32', torch.float32),
                              ('bfloat16', torch.bfloat16)):
-        k_ms = fwd_per_volume * sum(rows[(s, dtype)]['ms']
-                                    for s in launch_shapes)
-        b_ms = fwd_per_volume * sum(rows[(s, dtype)]['bound_ms']
-                                    for s in launch_shapes)
+        fwd = serving[precision]['forwards'] / N_VOLUMES   # measured
+        k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in launch_shapes)
+        b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in launch_shapes)
         v_ms = float(np.median(serving[precision]['vol_ms']))
         per_volume[precision] = (k_ms, b_ms, v_ms)
         print('per volume {0}: Inferer.run median {1:.2f} ms; kernel {2:.3f} '
               'ms ({3:.1%} of it) for {4} launches; kernel bound {5:.3f} ms; '
               'conv {6:.2f} TFLOP per volume, {7:.1f} TFLOP/s over the run'
               .format(precision, v_ms, k_ms, k_ms / v_ms,
-                      18 * fwd_per_volume, b_ms, flop_per_volume / 1e12,
+                      serving[precision]['launches'] // N_VOLUMES, b_ms,
+                      flop_per_volume / 1e12,
                       flop_per_volume / v_ms / 1e9))
+    fpl_shapes = dsbn_shapes(FPL_BATCH)
+    fpl_flop_per_volume = 2 * macs * FPL_BATCH * fwd_per_volume
+    fpl_kernel = {}
+    for precision, dtype in (('float32', torch.float32),
+                             ('bfloat16', torch.bfloat16)):
+        fwd = fpl[precision]['forwards'] / N_VOLUMES       # measured
+        k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in fpl_shapes)
+        b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in fpl_shapes)
+        v_ms = float(np.median(fpl[precision]['vol_ms']))
+        fpl_kernel[precision] = (k_ms, b_ms)
+        print('fpl per volume {0}: run_fpl_uncertainty median {1:.2f} ms; '
+              'kernel {2:.3f} ms ({3:.1%} of it) for {4} launches; kernel '
+              'bound {5:.3f} ms; peak {6:.2f} GiB; conv {7:.2f} TFLOP per '
+              'volume, {8:.1f} TFLOP/s over the pass'.format(
+                  precision, v_ms, k_ms, k_ms / v_ms,
+                  fpl[precision]['launches'] // N_VOLUMES,
+                  b_ms, fpl[precision]['peak'] / 2 ** 30,
+                  fpl_flop_per_volume / 1e12,
+                  fpl_flop_per_volume / v_ms / 1e9))
     entry = {
         'name': 'dsbn_prelu', 'route': 'triton', 'source': SOURCE,
         'replaces': REPLACES,
-        'launches': sum(serving[p]['launches'] for p in serving),
-        'max_abs_err': max_err[torch.float32],
-        'max_abs_err_bf16': max_err[torch.bfloat16],
+        'launches': (sum(serving[p]['launches'] for p in serving)
+                     + sum(fpl[p]['launches'] for p in fpl)
+                     + sum(r['launches'] for r in batched)),
+        'max_abs_err': max(e[torch.float32]
+                           for e in (max_err, max_err48, max_err24)),
+        'max_abs_err_bf16': max(e[torch.bfloat16]
+                                for e in (max_err, max_err48, max_err24)),
         'shape': list(big), 'dtype': 'float32',
         'ms': rows[(big, torch.float32)]['ms'], 'plain_ms': plain_ms,
         'bound_ms': rows[(big, torch.float32)]['bound_ms'],
         'bound_by': 'bytes', 'library_ms': None, 'yardstick_ms': yard_ms,
-        'launches_per_volume': 18 * fwd_per_volume,
+        'launches_per_volume': serving['float32']['launches'] // N_VOLUMES,
         'ms_per_volume': {p: v[0] for p, v in per_volume.items()},
         'bound_ms_per_volume': {p: v[1] for p, v in per_volume.items()},
         'volume_ms': {p: v[2] for p, v in per_volume.items()},
+        'fpl_shape': list(big48),
+        'fpl_ms': rows[(big48, torch.float32)]['ms'],
+        'fpl_plain_ms': plain48, 'fpl_yardstick_ms': yard48,
+        'fpl_bound_ms': rows[(big48, torch.float32)]['bound_ms'],
+        'fpl_launches_per_volume': fpl['float32']['launches'] // N_VOLUMES,
+        'fpl_ms_per_volume': {p: v[0] for p, v in fpl_kernel.items()},
+        'fpl_bound_ms_per_volume': {p: v[1] for p, v in fpl_kernel.items()},
+        'fpl_volume_ms': {p: float(np.median(fpl[p]['vol_ms']))
+                          for p in fpl},
+        'fpl_peak_gib': {p: fpl[p]['peak'] / 2 ** 30 for p in fpl},
+        'batched_volume_ms': [r['ms'] for r in batched[:2]],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

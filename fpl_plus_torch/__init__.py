@@ -11,19 +11,22 @@ kernel (``ops/dsbn_prelu.py``).
 
 Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   config/      INI-compatible experiment configuration (L9)
-  io/          NIfTI codec + CSV-manifest datasets + sync loader (L1)
+  io/          NIfTI codec + CSV-manifest datasets + loader, prefetch (L1)
   transforms/  sample-dict transform pipeline with recorded inverses (L2)
   models/      torch networks incl. DSBN variants (L3)
-  engine/      sliding-window inference, checkpoints (L5/L6 compute)
-  agents/      orchestration agents: the segmentation test stage (L5)
+  engine/      sliding-window inference, folded MC-dropout passes and the
+               FPL reduction, checkpoints (L5/L6 compute)
+  agents/      orchestration agents: the segmentation test stages (L5)
   ops/         hand-written Hopper kernels with their plain versions
-  utils/       weight bridge, label ops, precision policy (shared)
+  fpl/         FPL+ weight and data tools (``python -m fpl_plus_torch.fpl``)
+  utils/       weight bridge, label ops, post-processing, precision policy
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
 
-Ported so far: the pseudo-label test stage (sliding window + flip TTA) on
-UNet2D5_dsbn / UNet2D5. Training, the FPL uncertainty pass and the other
-agents and networks are queued in ROADMAP.md.
+Ported so far: the test stages on UNet2D5_dsbn / UNet2D5 — pseudo labels
+(sliding window + flip TTA, batched serving, post-processing) and the FPL
+MC-dropout uncertainty pass — and the FPL weight tools. Training and the
+other agents and networks are queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

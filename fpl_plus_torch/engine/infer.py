@@ -1,23 +1,34 @@
-"""Sliding-window inference with flip test-time augmentation.
+"""Sliding-window inference with flip test-time augmentation, batched
+volumes and folded MC-dropout passes.
 
 Replaces the reference Inferer (PyMIC/pymic/net_run_dsbn/infer_func.py):
 identical window-grid rule (clamped starts, :75-85), overlap averaging by an
-exact coverage counter (:96-111) and flip-TTA over H/W (:195-222).
+exact coverage counter (:96-111) and flip-TTA over H/W (:195-222); and the
+JAX package's batched serving (``run_batch``), pass folding
+(``run_passes``) and on-device FPL uncertainty reduction
+(``run_fpl_uncertainty``, ``engine/infer.py:515-544`` and ``:1114-1352``
+there).
 
 Design on the card: PyTorch runs eagerly, so the loop over window chunks is
 plain Python around device work.
 
-* The volume crosses to the device once; the four flip variants (identity,
-  flip-H, flip-W, flip-HW) are stacked into a leading V axis, so every
-  forward carries ``V x patch_chunk`` windows.
+* N volumes (N same-shape volumes of a loader batch, or N copies of one
+  volume for N folded passes) cross to the device once; their four flip
+  variants (identity, flip-H, flip-W, flip-HW) stack into a leading N x V
+  axis, volume-major, so every forward carries ``N x V x patch_chunk``
+  windows and rows ``[i*V*chunk, (i+1)*V*chunk)`` belong to volume (pass)
+  i. A group-folded predictor (the network called with one dropout
+  generator per pass, ``models/common.py`` ``grouped_dropout``) relies on
+  that order.
 * Each chunk's windows are cut on the device, forwarded in one call and
-  added into an f32 accumulator ``[V, K, *img]`` in grid order.
+  added into an f32 accumulator ``[N*V, K, *img]`` in grid order.
 * The overlap counter is computed in closed form: the grid is the Cartesian
   product of per-dim start lists, so coverage is an outer product of per-dim
   1-D coverage vectors (duplicate clamped starts count, as in the
   reference).
 * Division, un-flip averaging and the output head (logits, softmax or
-  argmax) run on the device; only the result crosses back.
+  argmax) run on the device; only the result crosses back. The FPL pass
+  crosses back two scalars.
 
 Single-head networks only. The JAX package's XLA compile devices (shape
 bucketing, unrolled vs scanned accumulation, window placement, the device
@@ -25,7 +36,8 @@ mesh) change no value — bucketing is exact by construction, the rest are
 schedules — so their ``[testing]`` keys are accepted and ignored; the last
 chunk of the grid may simply be shorter than ``patch_chunk``.
 
-Layout: volumes are ``[C, *img]`` channels-first, flip axes H = -2, W = -1.
+Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
+W = -1.
 """
 from __future__ import annotations
 
@@ -78,20 +90,22 @@ def dim_start_lists(img_shape: Sequence[int], window: Sequence[int],
 _FLIPS = ((), (-2,), (-1,), (-2, -1))   # identity, flip-H, flip-W, flip-HW
 
 
-def _make_variants(volume: torch.Tensor, tta: bool) -> torch.Tensor:
-    """[C, *img] -> [V, C, *img] of flip variants (V=4 with TTA else 1)."""
+def _make_variants(vols: torch.Tensor, tta: bool) -> torch.Tensor:
+    """[N, C, *img] -> [N*V, C, *img] of flip variants, volume-major (V=4
+    with TTA else 1)."""
     if not tta:
-        return volume[None]
-    return torch.stack([volume.flip(ax) if ax else volume for ax in _FLIPS])
+        return vols
+    return torch.stack([vols.flip(ax) if ax else vols for ax in _FLIPS],
+                       1).flatten(0, 1)
 
 
-def _unflip_mean(outputs: torch.Tensor, tta: bool) -> torch.Tensor:
-    """[V, K, *img] -> TTA-averaged [K, *img] (un-flip each variant
+def _unflip_mean(outputs: torch.Tensor, n: int, tta: bool) -> torch.Tensor:
+    """[N*V, K, *img] -> TTA-averaged [N, K, *img] (un-flip each variant
     first)."""
     if not tta:
-        return outputs[0]
-    un = [outputs[i].flip(ax) if ax else outputs[i]
-          for i, ax in enumerate(_FLIPS)]
+        return outputs
+    g = outputs.reshape((n, len(_FLIPS)) + tuple(outputs.shape[1:]))
+    un = [g[:, i].flip(ax) if ax else g[:, i] for i, ax in enumerate(_FLIPS)]
     return sum(un) / len(un)
 
 
@@ -112,13 +126,47 @@ def _coverage(dim_starts, window, img_shape) -> torch.Tensor:
 
 
 def _finalize(out: torch.Tensor, output_mode: str) -> torch.Tensor:
-    """Device-side head on ``[K, *img]``: 'logits', 'prob' (softmax) or
-    'label' (argmax, uint8)."""
+    """Device-side head on ``[N, K, *img]``: 'logits', 'prob' (softmax) or
+    'label' (argmax, uint8 ``[N, *img]``)."""
     if output_mode == 'prob':
-        return torch.softmax(out, 0)
+        return torch.softmax(out, 1)
     if output_mode == 'label':
-        return torch.argmax(out, 0).to(torch.uint8)
+        return torch.argmax(out, 1).to(torch.uint8)
     return out
+
+
+def fpl_uncertainty_reduce(out: torch.Tensor, lo: Sequence[int],
+                           up: Sequence[int]) -> Tuple[float, int]:
+    """Reduce folded-pass logits ``[N, K, *img]`` to the FPL image-level
+    uncertainty on their device, in f32 (reference agent_seg.py:921-929):
+
+    - ``vars_sum``: the population variance over passes of the softmax
+      probabilities, summed over classes and selected voxels;
+    - ``boundary``: the count of selected voxels whose mean-probability
+      entropy term exceeds 0.01 (K == 2: the class-1 term only; K > 2: the
+      full entropy), both with ``log(mean + 1e-6)``.
+
+    ``lo``/``up``: per-spatial-axis selection margins (the composed
+    inverse-transform crop). Masking the per-voxel maps equals
+    crop-then-reduce, since variance and entropy are per voxel. Only the
+    two scalars cross to the host."""
+    out = out.float()
+    probs = torch.softmax(out, 1)                         # [N, K, *img]
+    img = tuple(out.shape[2:])
+    mask = torch.ones(img, dtype=torch.bool, device=out.device)
+    for d, size in enumerate(img):
+        idx = torch.arange(size, device=out.device)
+        m = (idx >= int(lo[d])) & (idx < size - int(up[d]))
+        mask &= m.reshape((-1,) + (1,) * (len(img) - 1 - d))
+    vars_sum = torch.sum(probs.var(0, correction=0).sum(0) * mask.float())
+    if out.shape[1] == 2:
+        means = probs[:, 1].mean(0)                       # [*img]
+        unc = -(means * torch.log(means + 1e-6))
+    else:
+        means = probs.mean(0)                             # [K, *img]
+        unc = -torch.sum(means * torch.log(means + 1e-6), 0)
+    boundary = torch.sum((unc > 0.01) & mask)
+    return float(vars_sum), int(boundary)
 
 
 class Inferer:
@@ -128,14 +176,15 @@ class Inferer:
     volume batch when sliding window is off) to logits ``[B, K, *win]``.
     ``image``: numpy ``[1, C, *img]``. ``run`` returns numpy
     ``[1, K, *img]`` f32 for 'logits'/'prob' and ``[1, *img]`` uint8 for
-    'label'/'packed_label'.
+    'label'/'packed_label'; ``run_batch`` and ``run_passes`` return the
+    same with a leading ``[N]``.
     """
 
     def __init__(self, config: dict, device, patch_chunk: int = 2):
         self.config = config
         self.device = torch.device(device)
         # windows per forward ([testing] patch_chunk); the forward batch is
-        # 4 x patch_chunk with TTA
+        # N x 4 x patch_chunk with TTA over N volumes or passes
         self.patch_chunk = int(config.get('patch_chunk', patch_chunk))
         mode = config.get('output_mode', 'logits')
         if mode not in ('logits', 'prob', 'label', 'packed_label'):
@@ -154,6 +203,12 @@ class Inferer:
             t = t.to(self.compute_dtype)
         return t.to(self.device)
 
+    def _tta(self) -> bool:
+        tta_mode = self.config.get('tta_mode', 0)
+        if tta_mode not in (0, 1):
+            raise ValueError('Undefined tta_mode {0}'.format(tta_mode))
+        return bool(tta_mode)
+
     def _resolve_sw(self, img_shape):
         """(use_sw, window, stride) with the reference clamps: window caps
         at the image, stride caps at the window."""
@@ -170,6 +225,12 @@ class Inferer:
                 stride[d] = window[d]
         return use_sw, window, stride
 
+    def _windowed(self, img_shape) -> bool:
+        """True when the sliding window runs: enabled, and the image is
+        larger than one window in some axis."""
+        use_sw, window, _ = self._resolve_sw(img_shape)
+        return use_sw and not all(w >= s for w, s in zip(window, img_shape))
+
     @staticmethod
     def _forward(predictor: Callable, x: torch.Tensor) -> torch.Tensor:
         out = predictor(x)
@@ -179,7 +240,7 @@ class Inferer:
         return out.float()
 
     def _sliding_window(self, predictor, variants, window, stride):
-        """Overlap-averaged ``[V, K, *img]`` f32 over the clamped grid."""
+        """Overlap-averaged ``[N*V, K, *img]`` f32 over the clamped grid."""
         img_shape = tuple(variants.shape[2:])
         starts = window_grid(img_shape, window, stride)
         chunk = min(self.patch_chunk, len(starts))
@@ -205,22 +266,16 @@ class Inferer:
                         img_shape).to(self.device)
         return out / torch.clamp_min(cnt, 1e-6)
 
-    @torch.inference_mode()
-    def run(self, predictor: Callable, image) -> np.ndarray:
-        tta_mode = self.config.get('tta_mode', 0)
-        if tta_mode not in (0, 1):
-            raise ValueError('Undefined tta_mode {0}'.format(tta_mode))
-        tta = bool(tta_mode)
-
-        image = np.asarray(image)
-        if image.shape[0] != 1:
-            raise ValueError('inference processes one volume at a time')
-        vol = image[0]
-        img_shape = vol.shape[1:]
-        dim = len(img_shape)
-        use_sw, window, stride = self._resolve_sw(img_shape)
-
-        if not use_sw or all(window[d] >= img_shape[d] for d in range(dim)):
+    def _dev(self, predictor: Callable, images: np.ndarray,
+             copies: int = 1) -> torch.Tensor:
+        """Device logits ``[N, K, *img]`` f32 of ``images [N, C, *img]``
+        (``copies`` > 1: N = ``copies`` passes over one volume), TTA and
+        overlap averaging done, before the output head."""
+        tta = self._tta()
+        img_shape = tuple(images.shape[2:])
+        _, window, stride = self._resolve_sw(img_shape)
+        windowed = self._windowed(img_shape)
+        if not windowed:
             # whole-volume path: reflect-pad spatial dims to a multiple of
             # the network's total downsampling factor so odd sizes survive
             # the encoder/decoder; padded before the flip variants so
@@ -228,15 +283,76 @@ class Inferer:
             mult = self.config.get('infer_autopad_multiple', 16)
             pads = [(-s) % mult for s in img_shape]
             if any(pads):
-                vol = np.pad(vol, [(0, 0)] + [(0, p) for p in pads],
-                             mode='reflect')
-            out = self._forward(predictor,
-                                _make_variants(self._to_device(vol), tta))
-            out = _unflip_mean(out, tta)[
-                (slice(None),) + tuple(slice(0, s) for s in img_shape)]
-        else:
-            variants = _make_variants(self._to_device(vol), tta)
-            out = _unflip_mean(
+                images = np.pad(images, [(0, 0), (0, 0)]
+                                + [(0, p) for p in pads], mode='reflect')
+        vols = self._to_device(images)
+        if copies > 1:
+            vols = vols.expand((copies,) + tuple(vols.shape[1:]))
+        n = vols.shape[0]
+        variants = _make_variants(vols, tta)
+        if windowed:
+            return _unflip_mean(
                 self._sliding_window(predictor, variants, window, stride),
-                tta)
-        return _finalize(out, self.output_mode).cpu().numpy()[None]
+                n, tta)
+        out = _unflip_mean(self._forward(predictor, variants), n, tta)
+        return out[(slice(None), slice(None))
+                   + tuple(slice(0, s) for s in img_shape)]
+
+    def _host(self, out: torch.Tensor) -> np.ndarray:
+        return _finalize(out, self.output_mode).cpu().numpy()
+
+    @torch.inference_mode()
+    def run(self, predictor: Callable, image) -> np.ndarray:
+        image = np.asarray(image)
+        if image.shape[0] != 1:
+            raise ValueError('inference processes one volume at a time')
+        return self._host(self._dev(predictor, image))
+
+    @torch.inference_mode()
+    def run_batch(self, predictor: Callable, images) -> np.ndarray:
+        """Batched serving: N same-shape volumes ``[N, C, *img]`` through
+        one sliding window whose forwards carry every volume's windows.
+        Voxel-identical to N ``run`` calls up to the convolution library's
+        choice of algorithm at the larger batch. Runs volume by volume
+        when N is 1, the sliding window is off, or the volume fits in one
+        window."""
+        images = np.asarray(images)
+        n = images.shape[0]
+        if n == 0:
+            raise ValueError('run_batch needs at least one volume')
+        if n == 1 or not self._windowed(images.shape[2:]):
+            return np.concatenate([self.run(predictor, images[i:i + 1])
+                                   for i in range(n)], 0)
+        return self._host(self._dev(predictor, images))
+
+    def _passes_dev(self, group_predictor: Callable, image,
+                    n_passes: int) -> torch.Tensor:
+        image = np.asarray(image)
+        if image.shape[0] != 1:
+            raise ValueError('run_passes folds passes over one volume')
+        return self._dev(group_predictor, image, copies=n_passes)
+
+    @torch.inference_mode()
+    def run_passes(self, group_predictor: Callable, image,
+                   n_passes: int) -> np.ndarray:
+        """Fold ``n_passes`` stochastic passes over one volume into one
+        batched inference. ``group_predictor`` treats its patch batch as
+        ``n_passes`` contiguous groups, group i under pass i's randomness
+        (the network given ``n_passes`` ``dropout_generators``). Row i of
+        the result is pass i's full inference (TTA, sliding window, overlap
+        averaging): the same as ``run`` with pass i's predictor."""
+        return self._host(self._passes_dev(group_predictor, image, n_passes))
+
+    @torch.inference_mode()
+    def run_fpl_uncertainty(self, group_predictor: Callable, image,
+                            n_passes: int, margins=None) -> Tuple[float, int]:
+        """The FPL image-level uncertainty ``(vars_sum, boundary)`` of
+        ``n_passes`` folded passes, reduced on the device
+        (``fpl_uncertainty_reduce``). ``margins``: optional
+        ``(margin_lower, margin_upper)`` per spatial axis, the composed
+        crop of the test chain's inverse transforms. The agent applies the
+        ``1 if boundary < 50 else vars_sum / boundary`` rule."""
+        out = self._passes_dev(group_predictor, image, n_passes)
+        dim = out.dim() - 2
+        lo, up = margins if margins is not None else ([0] * dim, [0] * dim)
+        return fpl_uncertainty_reduce(out, lo, up)

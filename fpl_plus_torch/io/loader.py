@@ -5,12 +5,15 @@ Per-item seeding (``seed + items_served``) of the python/numpy RNG before
 each ``__getitem__``, in manifest order. Collation stacks equal-shaped
 arrays into a leading batch axis, turns scalars into [N] arrays and keeps
 strings as lists (the transform-inverse JSON params survive as singleton
-lists, like torch collation did in the reference). The multiprocess worker
-pool belongs to the training slice.
+lists, like torch collation did in the reference). ``prefetch_iter`` decodes
+the next batch in a thread while the device works on the current one. The
+multiprocess worker pool belongs to the training slice.
 """
 from __future__ import annotations
 
+import queue
 import random
+import threading
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -56,3 +59,52 @@ class DataLoader:
                 buf = []
         if buf:
             yield collate(buf)
+
+
+def prefetch_iter(iterable, depth: int = 2):
+    """Thread-backed look-ahead over any iterable: item i+1's production
+    (NIfTI decode, transform chain — gzip/numpy release the GIL) overlaps
+    the consumer's work on item i. Used by the agent's test stage so host
+    decode hides under device inference; errors re-raise at the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+    sentinel = object()
+    failure = []
+    stop = threading.Event()
+
+    def _put_until_stop(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False   # consumer abandoned the generator
+
+    def _producer():
+        try:
+            for item in iterable:
+                if not _put_until_stop(item):
+                    return
+        except BaseException as exc:   # surface to the consumer
+            failure.append(exc)
+        _put_until_stop(sentinel)
+
+    thread = threading.Thread(target=_producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        # consumer raised or abandoned the generator: release the producer
+        # (it may be blocked in put holding decoded volumes) and drain
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass

@@ -22,6 +22,31 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((1,), float(init_value)))
 
 
+def grouped_dropout(x: torch.Tensor, p: float, generators=None
+                    ) -> torch.Tensor:
+    """Dropout with explicit generators (flax ``nn.Dropout`` semantics).
+
+    ``generators`` None: the identity (eval). M generators: the leading
+    batch axis splits into M equal contiguous groups and group m's keep mask
+    is drawn from generator m, so a batch that folds M passes draws, group
+    by group, the same masks as M separate passes of one group each. Rate 0
+    is the identity and draws nothing. A voxel is kept where a uniform draw
+    in [0, 1) is below the keep probability ``1 - p``; kept values are
+    scaled by ``1 / (1 - p)`` in the activation dtype."""
+    if p == 0 or generators is None:
+        return x
+    m = len(generators)
+    if x.shape[0] % m:
+        raise ValueError('batch {0} does not split into {1} dropout groups'
+                         .format(x.shape[0], m))
+    keep_prob = 1.0 - p
+    shape = (x.shape[0] // m,) + tuple(x.shape[1:])
+    keep = torch.cat([torch.rand(shape, generator=g, device=x.device)
+                      < keep_prob for g in generators])
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Max pooling with equal window/stride over all spatial dims."""
     if x.dim() == 5:

@@ -6,15 +6,18 @@ resolution levels whose per-level conv dimension is configurable
 (``conv_dims``, e.g. [2,2,3,3,3]); 2D levels run slice-wise by folding depth
 into the batch axis and downsample only H/W, 3D levels downsample D/H/W;
 every conv is followed by DSBN + PReLU (dropout between the two convs of a
-block); decoder upsampling is a 1x1 conv + align-corners linear upsample
-(``bilinear=True``) or a k=2/s=2 transposed conv; the head is a Conv3d with
-kernel (1,3,3).
+block, drawn from explicit generators: ``models/common.py``
+``grouped_dropout``); decoder upsampling is a 1x1 conv + align-corners
+linear upsample (``bilinear=True``) or a k=2/s=2 transposed conv; the head
+is a Conv3d with kernel (1,3,3).
 
 Module names are the reference checkpoint keys (``block{i}.conv.conv{D}d_{j}``,
 ``bn{D}d{j}.bns.{d}``, ``relu_{j}``, ``up{j}.trans{D}d`` / ``up{j}.conv{D}d``,
 ``out_conv``), so reference ``.pt`` state dicts load with ``strict=True``.
 Unlike the reference, a block allocates only the conv dimension it uses.
-Only eval mode is ported (``models/dsbn.py``).
+DSBN runs in eval mode (``models/dsbn.py``); dropout is on only when the
+forward is given ``dropout_generators`` (MC-dropout at test time), never
+through ``module.train()``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from torch import nn
 
 from fpl_plus_torch.models.common import (PReLU, fold_depth_to_batch,
-                                          max_pool, unfold_depth_from_batch,
+                                          grouped_dropout, max_pool,
+                                          unfold_depth_from_batch,
                                           upsample_align_corners)
 from fpl_plus_torch.models.dsbn import DomainBatchNorm
 
@@ -48,12 +52,12 @@ class ConvBlockND(nn.Module):
                                            out_channels, 3, padding=1))
             setattr(self, bn, DomainBatchNorm(out_channels, num_domains))
             setattr(self, relu, PReLU())
-        self.dropout = nn.Dropout(dropout_p)
+        self.dropout_p = float(dropout_p)
 
-    def forward(self, x, domain: int):
+    def forward(self, x, domain: int, dropout_generators=None):
         for j, (conv, bn, relu) in enumerate(self._names):
             if j == 1:
-                x = self.dropout(x)
+                x = grouped_dropout(x, self.dropout_p, dropout_generators)
             x = getattr(self, conv)(x)
             x = getattr(self, bn)(x, domain, getattr(self, relu).weight)
         return x
@@ -68,11 +72,12 @@ class DownBlock(nn.Module):
         self.conv = ConvBlockND(in_channels, out_channels, num_domains, dim,
                                 dropout_p)
 
-    def forward(self, x, domain: int):
+    def forward(self, x, domain: int, dropout_generators=None):
         fold = self.dim == 2 and x.dim() == 5
         if fold:
+            # rows n*D + d: dropout groups over n stay contiguous
             x, nd = fold_depth_to_batch(x)
-        out = self.conv(x, domain)
+        out = self.conv(x, domain, dropout_generators)
         out_d = max_pool(out, 2) if self.downsample else None
         if fold:
             out = unfold_depth_from_batch(out, nd)
@@ -101,7 +106,7 @@ class UpBlock(nn.Module):
         self.conv = ConvBlockND(2 * skip_channels, out_channels, num_domains,
                                 dim, dropout_p)
 
-    def forward(self, x1, x2, domain: int):
+    def forward(self, x1, x2, domain: int, dropout_generators=None):
         # x1: low-res decoder feature; x2: high-res encoder skip
         fold = self.dim == 2 and x1.dim() == 5
         if fold:
@@ -110,14 +115,18 @@ class UpBlock(nn.Module):
         x1 = getattr(self, self._up)(x1)
         if self.bilinear:
             x1 = upsample_align_corners(x1, 2)
-        out = self.conv(torch.cat([x2, x1], dim=1), domain)
+        out = self.conv(torch.cat([x2, x1], dim=1), domain,
+                        dropout_generators)
         if fold:
             out = unfold_depth_from_batch(out, nd)
         return out
 
 
 class UNet2D5DSBN(nn.Module):
-    """forward(x [N,C,D,H,W], domain int) -> logits [N,class_num,D,H,W]."""
+    """forward(x [N,C,D,H,W], domain int, dropout_generators=None) ->
+    logits [N,class_num,D,H,W]. ``dropout_generators``: None (no dropout)
+    or M ``torch.Generator``s on the device of ``x``, one per contiguous
+    group of N/M samples (``grouped_dropout``)."""
 
     def __init__(self, in_chns: int, feature_chns: Sequence[int],
                  conv_dims: Sequence[int], dropout: Sequence[float],
@@ -142,16 +151,17 @@ class UNet2D5DSBN(nn.Module):
         self.out_conv = nn.Conv3d(ft[0], class_num, (1, 3, 3),
                                   padding=(0, 1, 1))
 
-    def forward(self, x, domain_label: int = 0):
-        x0, x0_d = self.block0(x, domain_label)
-        x1, x1_d = self.block1(x0_d, domain_label)
-        x2, x2_d = self.block2(x1_d, domain_label)
-        x3, x3_d = self.block3(x2_d, domain_label)
-        x4, _ = self.block4(x3_d, domain_label)
-        y = self.up1(x4, x3, domain_label)
-        y = self.up2(y, x2, domain_label)
-        y = self.up3(y, x1, domain_label)
-        y = self.up4(y, x0, domain_label)
+    def forward(self, x, domain_label: int = 0, dropout_generators=None):
+        g = dropout_generators
+        x0, x0_d = self.block0(x, domain_label, g)
+        x1, x1_d = self.block1(x0_d, domain_label, g)
+        x2, x2_d = self.block2(x1_d, domain_label, g)
+        x3, x3_d = self.block3(x2_d, domain_label, g)
+        x4, _ = self.block4(x3_d, domain_label, g)
+        y = self.up1(x4, x3, domain_label, g)
+        y = self.up2(y, x2, domain_label, g)
+        y = self.up3(y, x1, domain_label, g)
+        y = self.up4(y, x0, domain_label, g)
         return self.out_conv(y)
 
 
@@ -164,5 +174,5 @@ class UNet2D5(UNet2D5DSBN):
         super().__init__(in_chns, feature_chns, conv_dims, dropout,
                          class_num, bilinear, num_domains=1)
 
-    def forward(self, x, domain_label: int = 0):
-        return super().forward(x, 0)
+    def forward(self, x, domain_label: int = 0, dropout_generators=None):
+        return super().forward(x, 0, dropout_generators)

@@ -138,8 +138,9 @@ def test_port_labels_match_jax_cli(workspace):
 
 
 def test_port_batched_and_bf16_stages(workspace):
-    """test_batch_size > 1 runs volume by volume (same labels as batch 1);
-    bf16 serving writes binary labels that mostly agree with f32."""
+    """test_batch_size > 1 runs each loader batch as one batched sliding
+    window (the same labels as batch 1); bf16 serving writes binary labels
+    that mostly agree with f32."""
     root = workspace
     if not os.path.isdir(os.path.join(root, 'out_torch')):
         assert torch_main(['test', _cfg(root, 'torch.cfg', 'out_torch')],
@@ -161,9 +162,13 @@ def test_cli_refuses_what_is_not_ported(workspace):
     cfg = _cfg(workspace, 'torch.cfg', 'out_torch')
     with pytest.raises(NotImplementedError, match='not yet ported'):
         torch_main(['train', cfg], device='cpu')
-    fpl = _cfg(workspace, 'fpl.cfg', 'out_fpl', extra='fpl = True')
-    with pytest.raises(NotImplementedError, match='fpl'):
-        torch_main(['test', fpl], device='cpu')
+    ens = _cfg(workspace, 'ens.cfg', 'out_ens')
+    with open(ens) as f:
+        text = f.read().replace('ckpt_mode = 0', 'ckpt_mode = 3')
+    with open(ens, 'w') as f:
+        f.write(text)
+    with pytest.raises(NotImplementedError, match='ckpt_mode 3'):
+        torch_main(['test', ens], device='cpu')
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_main(['test', cfg])
