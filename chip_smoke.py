@@ -35,13 +35,31 @@ It builds the port's Triton kernel from this checkout (cache under
    against the phase-4 per-volume labels; then with TF32 off, batched
    against per-volume labels;
 9. tools: ``python -m fpl_plus_torch.fpl pixel-weight`` (f32 vs bf16 labels)
-   and ``image-weight`` (the f32 ``.npy``) into the weighted train CSV.
+   and ``image-weight`` (the f32 ``.npy``) into the weighted train CSV;
+10. grad refusal: the kernel's wrapper raises on the card when autograd
+    would need its backward (and runs under ``torch.no_grad()``);
+11. train step, card vs CPU: one joint step of the full-width network
+    (dropout 0, TF32 off, identical weights and one [28,128,128] crop per
+    domain) through ``engine/train.py``: loss, both class dice, every
+    parameter's gradient and the updated DSBN running statistics;
+12. timed train step at the flagship setting (batch 4+4 crops of
+    [28,128,128], ``train_fpl_uda`` DiceLoss with pixel and image weights,
+    Adam, the network's dropout): median CUDA-event ms per step over 12
+    steps after 3 warm-up steps, and peak device memory, at f32 (TF32) and
+    bf16; TFLOP per step counted from the module shapes;
+13. train: ``fpl_plus_torch.cli train`` on labelled 40x160x272 volumes
+    (generator run, 4 iterations with validation and checkpoints every 2,
+    then the auto test stage), then the weighted segmentor run that resumes
+    it at iteration 4 on phase 9's CSV (``train_fpl_uda``, bf16, to
+    iteration 6): checkpoints and pointers, the resumed optimizer's step
+    count, finite losses, the host wait per iteration, and validation and
+    auto-test launches equal to 18 x the eval-mode forwards.
 
-Each main-path run (phases 4, 7, 8) sets the launch counter to 0 just before
-it and reads it just after. Then it prints one ``{"kernels": [...]}`` line
-and, last, the ok line. It imports nothing of the JAX package. Without a
-card, or without the ``fpl_plus_torch`` package beside it, it exits non-zero
-and prints no result.
+Each main-path run (phases 4, 7, 8, 13) sets the launch counter to 0 just
+before it and reads it just after. Then it prints one ``{"kernels": [...]}``
+line and, last, the ok line. It imports nothing of the JAX package. Without
+a card, or without the ``fpl_plus_torch`` package beside it, it exits
+non-zero and prints no result.
 """
 import contextlib
 import copy
@@ -94,6 +112,21 @@ REDUCE_COUNT_TOL = 1e-5
 # leave between the two logits (0.99967 measured on the H100)
 BATCH_AGREE = 0.9999
 BATCH_AGREE_TF32 = 0.999
+# phase 11, train step card vs CPU, f32 with TF32 off: the same sums in
+# other orders through ~20 layers forward and back. Loss and class dice:
+# absolute. A gradient: per tensor, against that tensor's max |g| plus the
+# network's largest |g|: the f32 step itself is that far from exact on the
+# deep tensors, whose gradients are small (against a float64 CPU step,
+# tools/torch_train_step_precision.py measured on an H100: CPU f32 up to
+# 9.8e-5 and the card up to 1.9e-4 of the network's max |g|, 1-2% of a deep
+# tensor's own max). Running statistics: against the tensor's max |value|
+STEP_LOSS_TOL = 1e-4
+STEP_DICE_TOL = 1e-3
+GRAD_RTOL = 5e-3
+GRAD_NET_TOL = 1e-3
+STATS_TOL = 1e-5
+TRAIN_BATCH = 4                          # flagship: 4 + 4 crops
+TRAIN_STEPS, TRAIN_WARMUP = 12, 3
 REPLACES = 'fpl_plus_tpu/ops/pallas_fused.py:48'
 CONVS = (torch.nn.Conv2d, torch.nn.Conv3d)
 TRANSPOSED = (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
@@ -366,12 +399,14 @@ def timed_method(cls, name, sink):
 
 @contextlib.contextmanager
 def counting_forwards():
-    """Count the network forwards (calls of a UNet2D5DSBN) in the block."""
+    """Count the eval-mode network forwards (calls of a UNet2D5DSBN) in the
+    block: the forwards that reach the kernel (train-mode forwards use
+    batch statistics)."""
     from fpl_plus_torch.models.unet2d5_dsbn import UNet2D5DSBN
     n = [0]
 
     def count(module, args, out):
-        if isinstance(module, UNet2D5DSBN):
+        if isinstance(module, UNet2D5DSBN) and not module.training:
             n[0] += 1
 
     hook = torch.nn.modules.module.register_module_forward_hook(count)
@@ -651,6 +686,350 @@ def tools_phase(root, fpl):
           'image weights {1}'.format(N_VOLUMES, [r[3] for r in rows[1:]]))
 
 
+def grad_refusal_phase(dev):
+    """The kernel has no backward: its wrapper raises on the card when
+    grad mode is on and an input requires grad, and runs under
+    ``torch.no_grad()``."""
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tables = [t.requires_grad_() for t in random_tables(8, gen, dev)]
+    alpha = torch.tensor([0.25], device=dev, requires_grad=True)
+    x = torch.randn((2, 8, 4, 16, 16), device=dev)
+    try:
+        dsbn_prelu(x, *tables, DOMAIN, alpha)
+    except RuntimeError as exc:
+        refused = 'no backward' in str(exc)
+    else:
+        refused = False
+    check(refused, 'dsbn_prelu returned a tensor without a gradient path')
+    with torch.no_grad():
+        y = dsbn_prelu(x, *tables, DOMAIN, alpha)
+    torch.cuda.synchronize()
+    check(y.shape == x.shape, 'no_grad call')
+    print('grad refusal: the kernel raises under autograd and runs under '
+          'torch.no_grad()')
+
+
+def train_inputs(gen, batch, device):
+    """One domain's train batch at the flagship crop: image, one-hot
+    labels, binary pixel weights scaled per sample, image weights."""
+    x = torch.randn((batch, 1) + tuple(WINDOW), generator=gen)
+    y = (x[:, 0] > 0.5).long()
+    scale = torch.rand((batch, 1, 1, 1, 1), generator=gen) * 0.5 + 0.5
+    keep = (torch.rand((batch, 1) + tuple(WINDOW), generator=gen) > 0.2)
+    out = {'image': x,
+           'label_prob': F.one_hot(y, 2).movedim(-1, 1).float(),
+           'pixel_weight': keep.float() * scale,
+           'image_weight': torch.rand(batch, generator=gen) * 0.5 + 0.5}
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def make_step(net, precision=None):
+    from fpl_plus_torch.engine.optim import create_optimizer
+    from fpl_plus_torch.engine.train import JointTrainStep
+    from fpl_plus_torch.losses import create_loss_calculator
+    cfg = {'optimizer': 'Adam', 'learning_rate': 1e-4, 'weight_decay': 0.0,
+           'loss_type': 'DiceLoss'}
+    return JointTrainStep(net.train(), create_loss_calculator(
+        {'training': cfg}), create_optimizer(cfg, net.parameters()),
+        num_domains=2, fpl_uda=True, compute_dtype=precision)
+
+
+def train_step_phase(dev):
+    """One joint step, card vs CPU, full width, dropout 0, TF32 off."""
+    from fpl_plus_torch.models.registry import create_network
+    net = create_network(dict(NET_CFG, dropout=[0.0] * 5))
+    init_random_(net, SEED + 4)
+    net_dev = copy.deepcopy(net).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    batches = [train_inputs(gen, 1, 'cpu') for _ in range(2)]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = make_step(net_dev)([{k: v.to(dev) for k, v in b.items()}
+                                  for b in batches], [None, None])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    want = make_step(net)(batches, [None, None])
+    loss_err = abs(float(got['loss']) - float(want['loss']))
+    dice_err = max(float((got[k].cpu() - want[k]).abs().max())
+                   for k in ('class_dice_0', 'class_dice_1'))
+    grads = {k: p.grad for k, p in net.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    worst, worst_name, rel_max = 0.0, None, 0.0
+    for name, p in net_dev.named_parameters():
+        err = float((p.grad.cpu() - grads[name]).abs().max())
+        g_max = float(grads[name].abs().max())
+        ratio = err / (GRAD_RTOL * g_max + GRAD_NET_TOL * top)
+        if g_max > 1e-3 * top:
+            rel_max = max(rel_max, err / g_max)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    stats_err = 0.0
+    ref = net.state_dict()
+    for name, t in net_dev.state_dict().items():
+        if name.endswith(('running_mean', 'running_var')):
+            e = float((t.cpu() - ref[name]).abs().max()
+                      / ref[name].abs().max())
+            stats_err = max(stats_err, e)
+    print('train step card vs CPU (full width, 1+1 crops, TF32 off): loss '
+          '{0!r} vs {1!r} (abs err {2:.3g}, tolerance {3}); class dice max '
+          'abs err {4:.3g} (tolerance {5}); gradients: max abs err / '
+          'tensor max |g| {6:.3g} over tensors with |g| above 1e-3 of the '
+          'network max, worst tensor {7} at {8:.3g} of its tolerance '
+          '({9} x tensor max |g| + {10} x network max |g| {11:.3g}); DSBN '
+          'running statistics max abs err / tensor max {12:.3g} '
+          '(tolerance {13})'.format(
+              float(got['loss']), float(want['loss']), loss_err,
+              STEP_LOSS_TOL, dice_err, STEP_DICE_TOL, rel_max, worst_name,
+              worst, GRAD_RTOL, GRAD_NET_TOL, top, stats_err, STATS_TOL))
+    check(loss_err <= STEP_LOSS_TOL, 'train step loss disagrees')
+    check(dice_err <= STEP_DICE_TOL, 'train step dice disagrees')
+    check(worst <= 1.0, 'train step gradient {0} disagrees'.format(
+        worst_name))
+    check(stats_err <= STATS_TOL, 'DSBN running statistics disagree')
+    return {'loss_err': loss_err, 'grad_rel': rel_max, 'grad_worst': worst,
+            'stats_err': stats_err}
+
+
+def timed_train_phase(dev, net, macs):
+    """The flagship joint step at f32 (TF32, PyTorch's default) and bf16:
+    median CUDA-event ms over TRAIN_STEPS steps after TRAIN_WARMUP, peak
+    device memory."""
+    from fpl_plus_torch.utils.precision import resolve_dtype
+    gen = torch.Generator().manual_seed(SEED + 6)
+    batches = [train_inputs(gen, TRAIN_BATCH, dev) for _ in range(2)]
+    # forward, input-gradient and weight-gradient convolutions: 3 x the
+    # forward's 2 x MACs, per window, 2 x TRAIN_BATCH windows
+    tflop = 3 * 2 * macs * 2 * TRAIN_BATCH / 1e12
+    results = {}
+    for precision in ('float32', 'bfloat16'):
+        step = make_step(copy.deepcopy(net).to(dev),
+                         resolve_dtype(precision))
+        seeds = np.random.SeedSequence([SEED, 7]).generate_state(
+            2 * (TRAIN_STEPS + TRAIN_WARMUP))
+        gens = iter([torch.Generator(dev).manual_seed(int(x))
+                     for x in seeds])
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(batches, [[next(gens)], [next(gens)]])
+            end.record()
+            end.synchronize()
+            losses.append(float(m['loss']))
+            if i >= TRAIN_WARMUP:
+                ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        med = float(np.median(ms))
+        check(all(np.isfinite(losses)), 'non-finite train loss')
+        results[precision] = {'ms': med, 'ms_all': ms, 'peak_gib': peak}
+        print('train step {0}: batch {1}+{1} crops {2}, median {3:.2f} ms '
+              'per step over {4} steps (min {5:.2f}, max {6:.2f}), peak '
+              'device memory {7:.2f} GiB, {8:.2f} TFLOP per step, {9:.1f} '
+              'TFLOP/s; losses {10:.4f} -> {11:.4f}'.format(
+                  precision, TRAIN_BATCH, WINDOW, med, len(ms), min(ms),
+                  max(ms), peak, tflop, tflop / med * 1e3, losses[0],
+                  losses[-1]))
+        del step
+        torch.cuda.empty_cache()
+    results['tflop'] = tflop
+    return results
+
+
+TRAIN_CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+1_train_csv = {root}/d0_train.csv
+2_train_csv = {root}/{d1_train}
+1_valid_csv = {root}/d0_valid.csv
+2_valid_csv = {root}/d1_valid.csv
+test_csv = {root}/target_test.csv
+train_batch_size = 4
+train_transform = [NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip, LabelToProbability]
+valid_transform = [NormalizeWithMeanStd, Pad, LabelToProbability]
+test_transform = [NormalizeWithMeanStd, Pad]
+NormalizeWithMeanStd_channels = [0]
+Pad_output_size = [28, 128, 128]
+RandomCrop_output_size = [28, 128, 128]
+RandomCrop_foreground_focus = True
+RandomCrop_foreground_ratio = 0.5
+RandomCrop_mask_label = [1]
+RandomFlip_flip_depth = False
+RandomFlip_flip_height = True
+RandomFlip_flip_width = True
+
+[network]
+net_type = UNet2D5_dsbn
+num_domains = 2
+class_num = 2
+in_chns = 1
+feature_chns = [32, 64, 128, 256, 512]
+conv_dims = [2, 2, 3, 3, 3]
+dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
+bilinear = False
+
+[training]
+dual = True
+train_fpl_uda = {fpl_uda}
+val_t2 = True
+loss_type = DiceLoss
+optimizer = Adam
+learning_rate = 1e-4
+momentum = 0.9
+weight_decay = 1e-5
+lr_scheduler = MultiStepLR
+lr_gamma = 0.5
+lr_milestones = [5]
+iter_start = {iter_start}
+iter_max = {iter_max}
+iter_valid = 2
+iter_save = 2
+precision = {precision}
+ckpt_save_dir = {root}/model/train
+
+[testing]
+ckpt_mode = 0
+domian_label = 1
+output_dir = {root}/out_train_{tag}
+sliding_window_enable = True
+sliding_window_size = [28, 128, 128]
+sliding_window_stride = [28, 128, 128]
+tta_mode = 1
+patch_chunk = 2
+"""
+
+
+def write_train_workspace(root, names, rel_csv):
+    """Labels for the phase-4 volumes (domain 1), two more labelled volumes
+    of other contrast (domain 0), the manifests, and phase 9's weighted
+    CSV rewritten relative to ``root``."""
+    from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_nifti
+    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(0.4, 0.4, 1.5),
+                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
+    rs = np.random.RandomState(SEED + 8)
+    lab = np.zeros(VOLUME, np.int16)
+    lab[12:28, 60:100, 100:170] = 1      # the bright block of phase 4
+    os.makedirs(os.path.join(root, 'lab'))
+    os.makedirs(os.path.join(root, 'src'))
+    rows = {0: [], 1: []}
+    for name in names:
+        lab_name = 'lab/' + os.path.basename(name)
+        write_nifti(NiftiImage(lab, geom), os.path.join(root, lab_name))
+        rows[1].append((name, lab_name))
+    for case in range(2):
+        vol = rs.normal(60.0, 15.0, size=VOLUME).astype(np.float32)
+        vol[lab > 0] += 50.0
+        name = 'src/case{0}.nii.gz'.format(case)
+        write_nifti(NiftiImage(vol, geom), os.path.join(root, name))
+        rows[0].append((name, 'lab/' + os.path.basename(names[0])))
+    for d in (0, 1):
+        for split in ('train', 'valid'):
+            with open(os.path.join(root, 'd{0}_{1}.csv'.format(d, split)),
+                      'w') as f:
+                f.write('image,label\n' + ''.join(
+                    '{0},{1}\n'.format(*r) for r in rows[d]))
+    with open(os.path.join(root, 'train_weighted.csv'), newline='') as f:
+        weighted = list(csv.reader(f))
+    with open(os.path.join(root, rel_csv), 'w') as f:
+        f.write(','.join(weighted[0]) + '\n')
+        for row in weighted[1:]:
+            f.write(','.join([os.path.relpath(p, root) for p in row[:3]]
+                             + row[3:]) + '\n')
+
+
+def train_cli_phase(root, names, fwd_per_volume):
+    """The generator run with its auto test stage, then the resumed
+    weighted run, through ``fpl_plus_torch.cli main(['train', cfg])``."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.engine.train import JointTrainStep
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    write_train_workspace(root, names, 'train_weighted_rel.csv')
+    valid_volumes = 2 + N_VOLUMES        # domain 0 and domain 1
+    ckpt_dir = os.path.join(root, 'model', 'train')
+    runs = {}
+    for tag, d1_train, fpl_uda, start, stop, precision in (
+            ('gen', 'd1_train.csv', False, 0, 4, 'float32'),
+            ('seg', 'train_weighted_rel.csv', True, 4, 6, 'bfloat16')):
+        cfg = os.path.join(root, 'train_{0}.cfg'.format(tag))
+        with open(cfg, 'w') as f:
+            f.write(TRAIN_CFG.format(
+                root=root, d1_train=d1_train, fpl_uda=fpl_uda,
+                iter_start=start, iter_max=stop, precision=precision,
+                tag=tag))
+        step_ms, valid_ms = [], []
+        with timed_method(JointTrainStep, '__call__', step_ms), \
+                timed_method(SegmentationAgent, 'validation', valid_ms), \
+                counting_forwards() as forwards:
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['train', cfg])
+            launches = dsbn_prelu.launches
+        check(rc == 0, 'train stage {0} rc {1}'.format(tag, rc))
+        # a validation every 2 iterations; the auto test: N_VOLUMES
+        n_eval = valid_volumes * (stop - start) // 2 + N_VOLUMES
+        check(forwards[0] == n_eval * fwd_per_volume,
+              '{0} eval forwards in the {1} run, expected {2}'.format(
+                  forwards[0], tag, n_eval * fwd_per_volume))
+        check(launches == 18 * forwards[0],
+              '{0} kernel launches for {1} eval forwards'.format(
+                  launches, forwards[0]))
+        check(len(step_ms) == stop - start, '{0} train steps'.format(
+            len(step_ms)))
+        with open(os.path.join(ckpt_dir, 'scalars.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        recs = [r for r in recs if start < r['step'] <= stop]
+        losses = [r[k] for r in recs if r['tag'] == 'loss'
+                  for k in ('train', 'valid')]
+        wait = [r['value'] for r in recs if r['tag'] == 'host_wait']
+        check(len(losses) == stop - start and all(np.isfinite(losses)),
+              'losses {0}'.format(losses))
+        for it in range(start + 2, stop + 1, 2):
+            check(os.path.isfile(os.path.join(ckpt_dir, 'train_{0}.pt'
+                                              .format(it))),
+                  'checkpoint of iteration {0}'.format(it))
+        with open(os.path.join(ckpt_dir, 'train_latest.txt')) as f:
+            check(f.read() == str(stop), 'latest pointer')
+        check(os.path.isfile(os.path.join(ckpt_dir, 'train_best.txt')),
+              'best pointer')
+        saved = torch.load(os.path.join(ckpt_dir, 'train_{0}.pt'.format(
+            stop)), map_location='cpu', weights_only=False)
+        opt = saved['optimizer_state_dict']
+        adam_steps = {int(v['step']) for v in opt['state'].values()}
+        check(opt['param_groups'][0]['update_count'] == stop
+              and adam_steps == {stop},
+              'optimizer step count {0} / {1} after iteration {2}'.format(
+                  opt['param_groups'][0]['update_count'], adam_steps, stop))
+        labels = os.listdir(os.path.join(root, 'out_train_' + tag,
+                                         'train_target_test'))
+        check(len(labels) == N_VOLUMES, 'auto test labels {0}'.format(
+            labels))
+        runs[tag] = {'launches': launches, 'forwards': forwards[0],
+                     'step_ms': step_ms,
+                     'valid_ms': [t / valid_volumes for t in valid_ms],
+                     'host_wait_s': wait, 'losses': losses}
+        print('train {0}: iterations {1}..{2} ({3}), {4} steps at {5} ms '
+              '(CUDA events around the step call, the first with warm-up), '
+              'host wait per iteration {6} s, validation {7} ms ({8} '
+              'volumes each), {9} eval forwards, {10} kernel launches, '
+              'losses {11}, optimizer step count {12}'.format(
+                  tag, start, stop, precision,
+                  len(step_ms), ['{0:.1f}'.format(t) for t in step_ms],
+                  ['{0:.4f}'.format(w) for w in wait],
+                  ['{0:.1f}'.format(t) for t in valid_ms], valid_volumes,
+                  forwards[0], launches,
+                  ['{0:.4f}'.format(v) for v in losses], stop))
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -670,7 +1049,10 @@ def main():
     print('memory rate for bounds: {0:.3g} B/s (data sheet)'.format(rate))
 
     rows, max_err, big, plain_ms, yard_ms = kernel_phase(dev, rate)
+    grad_refusal_phase(dev)
     net, macs = forward_phase(dev)
+    step_check = train_step_phase(dev)
+    timed = timed_train_phase(dev, net, macs)
     os.makedirs(os.path.join(REPO, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as ws:
         serving, names, fwd_per_volume = serving_phase(ws, net)
@@ -684,6 +1066,7 @@ def main():
         batched = batched_phase(ws, serving['float32']['labels'], names,
                                 fwd_per_volume)
         tools_phase(ws, fpl)
+        train = train_cli_phase(ws, names, fwd_per_volume)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -721,12 +1104,29 @@ def main():
                   b_ms, fpl[precision]['peak'] / 2 ** 30,
                   fpl_flop_per_volume / 1e12,
                   fpl_flop_per_volume / v_ms / 1e9))
+    for tag, r in train.items():
+        steps = r['step_ms'][1:] or r['step_ms']
+        wait = float(np.mean(r['host_wait_s']))
+        print('train {0} summary: step call median {1:.2f} ms after the '
+              'first; host wait {2:.4f} s per iteration ({3:.1%} of the '
+              'step); validation {4:.2f} ms per volume (median over the '
+              'validations)'
+              .format(tag, float(np.median(steps)), wait,
+                      wait / (float(np.median(steps)) / 1e3),
+                      float(np.median(r['valid_ms']))))
+    print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
+          '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
+          'card vs CPU gradient max rel err {5:.3g}'.format(
+              timed['float32']['ms'], timed['bfloat16']['ms'],
+              timed['float32']['peak_gib'], timed['bfloat16']['peak_gib'],
+              timed['tflop'], step_check['grad_rel']))
     entry = {
         'name': 'dsbn_prelu', 'route': 'triton', 'source': SOURCE,
         'replaces': REPLACES,
         'launches': (sum(serving[p]['launches'] for p in serving)
                      + sum(fpl[p]['launches'] for p in fpl)
-                     + sum(r['launches'] for r in batched)),
+                     + sum(r['launches'] for r in batched)
+                     + sum(r['launches'] for r in train.values())),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -750,6 +1150,8 @@ def main():
                           for p in fpl},
         'fpl_peak_gib': {p: fpl[p]['peak'] / 2 ** 30 for p in fpl},
         'batched_volume_ms': [r['ms'] for r in batched[:2]],
+        'train_cli_launches': {t: r['launches'] for t, r in train.items()},
+        'train_eval_forwards': {t: r['forwards'] for t, r in train.items()},
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -11,22 +11,29 @@ kernel (``ops/dsbn_prelu.py``).
 
 Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   config/      INI-compatible experiment configuration (L9)
-  io/          NIfTI codec + CSV-manifest datasets + loader, prefetch (L1)
+  io/          NIfTI codec + CSV-manifest datasets (caches, FPL+ weights),
+               loader, prefetch (L1)
   transforms/  sample-dict transform pipeline with recorded inverses (L2)
   models/      torch networks incl. DSBN variants (L3)
-  engine/      sliding-window inference, folded MC-dropout passes and the
+  losses/      Dice, weighted Dice, cross-entropy, combined (L4)
+  engine/      the joint DSBN train step, optimizers and schedules,
+               sliding-window inference, folded MC-dropout passes and the
                FPL reduction, checkpoints (L5/L6 compute)
-  agents/      orchestration agents: the segmentation test stages (L5)
+  agents/      orchestration agents: the segmentation train and test
+               stages (L5)
   ops/         hand-written Hopper kernels with their plain versions
   fpl/         FPL+ weight and data tools (``python -m fpl_plus_torch.fpl``)
-  utils/       weight bridge, label ops, post-processing, precision policy
+  utils/       weight bridge, label ops, post-processing, precision
+               policy, scalar curves
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
 
-Ported so far: the test stages on UNet2D5_dsbn / UNet2D5 — pseudo labels
-(sliding window + flip TTA, batched serving, post-processing) and the FPL
-MC-dropout uncertainty pass — and the FPL weight tools. Training and the
-other agents and networks are queued in ROADMAP.md.
+Ported so far: on UNet2D5_dsbn / UNet2D5, the dual-domain training stage
+(joint Dice step, Adam, ``.pt`` checkpoints, resume, in-training
+validation), the test stages — pseudo labels (sliding window + flip TTA,
+batched serving, post-processing) and the FPL MC-dropout uncertainty pass —
+and the FPL weight tools. Evaluation and the other agents and networks are
+queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,40 @@
-"""Segmentation agent: the FPL+ test stages (pseudo labels and the FPL
-uncertainty pass).
+"""Segmentation agent: the FPL+ dual-domain training stage and the test
+stages (pseudo labels and the FPL uncertainty pass).
 
-Parity with the reference SegmentationAgent inference
-(PyMIC/pymic/net_run_dsbn/agent_seg.py:834-1083) and the JAX package's
-``SegmentationAgent.infer`` (``agents/agent_seg.py:806-1063`` there): load
-the checkpoint, run sliding-window + flip-TTA inference on the configured
-domain's DSBN bank, undo the test transforms and save label NIfTIs with the
-source geometry.
+Parity with the reference SegmentationAgent
+(PyMIC/pymic/net_run_dsbn/agent_seg.py) and the JAX package's
+``SegmentationAgent`` (``agents/agent_seg.py`` there).
+
+Training (``train_valid``, reference :689-831, JAX :417-803):
+
+* the joint step of ``engine/train.py`` per iteration (``[training] dual =
+  True``), Adam or another ``torch.optim`` optimizer, MultiStepLR or the
+  plateau controller, ``[training] precision`` f32 or bf16;
+* the per-domain train streams are produced in a thread
+  (``prefetch_iter``) while the card steps; the time the loop waits on
+  them is logged and written as the ``host_wait`` scalar;
+* every ``iter_valid`` iterations: per-domain whole-volume validation
+  through the Inferer (``val_t1`` / ``val_t2`` select the domain that
+  counts), the plateau step, best tracking, ``iter_save`` checkpoints and
+  early stopping; then the final checkpoint (also when ``iter_valid`` does
+  not divide the run) and the best one, written asynchronously
+  (``engine/ckpt.py``), and the best pointer;
+* resume: ``iter_start > 0`` loads ``{prefix}_{iter_start}.pt``, with its
+  optimizer state and schedule position when it has them, else a fresh
+  optimizer whose MultiStepLR is offset by ``iter_start``.
+
+Dropout randomness in training: iteration ``it`` draws domain d's masks from
+a ``torch.Generator`` on the device seeded from
+``np.random.SeedSequence([random_seed, it, d])``, so the masks never equal
+the JAX package's.
+
+Not ported (each raises ``NotImplementedError``): ``dual = False`` (the
+alternating step with the entropy term), ``grad_accum_steps > 1``, ``dis``
+and ``dual_consistency``.
+
+Inference (reference :834-1083, JAX :806-1063): load the checkpoint, run
+sliding-window + flip-TTA inference on the configured domain's DSBN bank,
+undo the test transforms and save label NIfTIs with the source geometry.
 
 * The save path is the device-label one: softmax is monotonic, so the
   argmax of the logits runs on the device and a uint8 label map crosses
@@ -23,8 +51,8 @@ source geometry.
   fpl_plus_torch.fpl image-weight``.
 * ``test_time_dropout = True``: one dropout pass on the label path.
 
-Dropout randomness: volume i of the stage draws its pass seeds from
-``np.random.SeedSequence([random_seed, i])`` and gets one
+Dropout randomness at test time: volume i of the stage draws its pass seeds
+from ``np.random.SeedSequence([random_seed, i])`` and gets one
 ``torch.Generator`` on the device per pass. The masks therefore differ from
 the JAX package's (threefry keys split from ``random_seed``), and on the
 card from the CPU's: the two agree in distribution, not in value.
@@ -47,12 +75,17 @@ import torch
 from fpl_plus_torch.agents.agent_abstract import NetRunAgent
 from fpl_plus_torch.engine import ckpt as ckpt_lib
 from fpl_plus_torch.engine.infer import Inferer
+from fpl_plus_torch.engine.optim import (PlateauScheduler, create_lr_schedule,
+                                         create_optimizer, set_scheduled_lr)
+from fpl_plus_torch.engine.train import JointTrainStep, train_dice
 from fpl_plus_torch.io.image_io import save_nd_array_as_image
-from fpl_plus_torch.io.loader import prefetch_iter
+from fpl_plus_torch.io.loader import prefetch_iter, repeat_loader
+from fpl_plus_torch.losses import create_loss_calculator
 from fpl_plus_torch.models.registry import create_network, param_count
 from fpl_plus_torch.utils.image_process import convert_label
 from fpl_plus_torch.utils.post_process import PostProcessDict
-from fpl_plus_torch.utils.precision import cast_infer_module
+from fpl_plus_torch.utils.precision import cast_infer_module, resolve_dtype
+from fpl_plus_torch.utils.scalar_writer import ScalarWriter
 
 FPL_PASSES = 6
 
@@ -88,17 +121,296 @@ def _crop(label: np.ndarray, margins) -> np.ndarray:
         slice(a, s - b) for a, b, s in zip(lo, up, label.shape[1:]))]
 
 
+def refuse_unported_training(cfg_t: dict) -> None:
+    """Raise for the ``[training]`` settings whose step is not ported."""
+    if not cfg_t.get('dual', False):
+        raise NotImplementedError(
+            'dual = False (the alternating per-domain step with the entropy '
+            'term) is not yet ported; set [training] dual = True')
+    accum = int(cfg_t.get('grad_accum_steps', 1))
+    if accum < 1:
+        raise ValueError('[training] grad_accum_steps must be >= 1, got '
+                         '{0}'.format(accum))
+    if accum > 1:
+        raise NotImplementedError('grad_accum_steps > 1 is not yet ported')
+    for key in ('dis', 'dual_consistency'):
+        if cfg_t.get(key, False):
+            raise NotImplementedError(
+                '[training] {0} = True is not yet ported'.format(key))
+
+
+def _host_batch(data: dict, fpl_uda: bool,
+                pin: bool) -> Dict[str, torch.Tensor]:
+    """Loader batch -> the step's CPU tensors (pinned for an asynchronous
+    copy to the card): image, label_prob and, with ``fpl_uda``, the
+    weights."""
+    keys = ['image', 'label_prob']
+    if fpl_uda and data.get('pixel_weight', None) is not None:
+        keys.append('pixel_weight')
+        if data.get('image_weight', None) is not None:
+            keys.append('image_weight')
+    out = {k: torch.from_numpy(np.ascontiguousarray(data[k], np.float32))
+           for k in keys}
+    return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
 class SegmentationAgent(NetRunAgent):
     def __init__(self, config: dict, stage: str, device: torch.device):
         super().__init__(config, stage, device)
         self.module = None
         self.postprocessor = None
+        self.inferer = None
+        train_cfg = config.get('training', {})
+        self.fpl_uda = train_cfg.get('train_fpl_uda', False)
+        self.train_dtype = resolve_dtype(train_cfg.get('precision',
+                                                       'float32'))
         self.infer_precision = config['testing'].get('precision', 'float32')
+        if self.stage == 'train':
+            refuse_unported_training(train_cfg)
 
     def create_network(self):
         if self.module is None:
             self.module = create_network(self.config['network'])
         logging.info('parameter number %d', param_count(self.module))
+
+    # -- training -----------------------------------------------------------
+    def _dropout_generators(self, iteration: int):
+        """Per-domain dropout generators of ``iteration`` (None when the
+        network has no dropout)."""
+        if not any(self.config['network'].get('dropout', [])):
+            return [None] * self.num_domains
+        return [[torch.Generator(self.device).manual_seed(int(
+            np.random.SeedSequence([int(self.random_seed), iteration, d])
+            .generate_state(1)[0]))] for d in range(self.num_domains)]
+
+    def _train_batches(self):
+        """Endless tuples of per-domain host batches."""
+        pin = self.device.type == 'cuda'
+        streams = [repeat_loader(ld) for ld in self.train_loaders]
+        while True:
+            yield tuple(_host_batch(next(s), self.fpl_uda, pin)
+                        for s in streams)
+
+    def _resume(self, module, ckpt_dir, prefix, iter_start, sched_params):
+        """Load ``{prefix}_{iter_start}.pt`` into ``module``; returns its
+        optimizer state (None: the schedule is offset instead) and the
+        loaded weights."""
+        path = ckpt_lib.checkpoint_path(ckpt_dir, prefix, iter_start)
+        loaded = ckpt_lib.load_checkpoint(path)
+        module.load_state_dict(loaded['model_state_dict'], strict=True)
+        opt_state = loaded.get('optimizer_state_dict', None)
+        if opt_state is None:
+            # torch convention: the last completed iteration (reference
+            # agent_abstract.py:334: iteration - 1)
+            sched_params['last_iter'] = iter_start - 1
+            logging.info('checkpoint has no optimizer state; fresh '
+                         'optimizer with schedule offset %d', iter_start)
+        logging.info('resumed from %s', path)
+        return opt_state, loaded['model_state_dict']
+
+    def train_valid(self):
+        cfg_t = self.config['training']
+        ckpt_dir = cfg_t['ckpt_save_dir']
+        prefix = ckpt_lib.ckpt_prefix_of(self.config)
+        iter_start = cfg_t.get('iter_start', 0)
+        iter_max = cfg_t['iter_max']
+        iter_valid = cfg_t['iter_valid']
+        iter_save = cfg_t.get('iter_save', None)
+        early_stop_it = cfg_t.get('early_stop_patience', None)
+        if iter_save is None:
+            iter_save_list = [iter_max]
+        elif isinstance(iter_save, (tuple, list)):
+            iter_save_list = iter_save
+        else:
+            iter_save_list = list(range(0, iter_max + 1, iter_save))
+
+        module = self.module.to(self.device)
+        sched_params = dict(cfg_t)
+        sched_params['last_iter'] = -1
+        # the dsbn reference zeroes the restored valid_pred on resume
+        # (agent_seg.py:721-723): best tracking restarts at 0
+        max_val_dice, max_val_it, best_state = 0.0, iter_start, None
+        opt_state = None
+        if iter_start > 0:
+            opt_state, best_state = self._resume(module, ckpt_dir, prefix,
+                                                 iter_start, sched_params)
+        optimizer = create_optimizer(cfg_t, module.parameters())
+        if opt_state is not None:
+            optimizer.load_state_dict(opt_state)
+            # a reference optimizer state has no update count: take the
+            # moments' step count
+            first = next(iter(optimizer.state.values()), {})
+            optimizer.param_groups[0].setdefault(
+                'update_count', int(first.get('step', 0)))
+        schedule = create_lr_schedule(sched_params)
+        set_scheduled_lr(optimizer, schedule)
+        step = JointTrainStep(module, create_loss_calculator(self.config),
+                              optimizer, schedule, self.num_domains,
+                              self.fpl_uda, self.train_dtype)
+        plateau = PlateauScheduler(sched_params)
+        class_num = self.config['network']['class_num']
+        writer = ScalarWriter(ckpt_dir)
+        ckpt_writer = ckpt_lib.CheckpointWriter()
+        batches = prefetch_iter(self._train_batches(), depth=2)
+        glob_it = iter_start
+        module.train()
+        try:
+            for block_start in range(iter_start, iter_max, iter_valid):
+                lr_value = optimizer.param_groups[0]['lr']
+                t0 = time.time()
+                wait = 0.0
+                acc: Dict[str, List[torch.Tensor]] = {}
+                for sub_it in range(iter_valid):
+                    tw = time.time()
+                    host = next(batches)
+                    wait += time.time() - tw
+                    dev = [{k: v.to(self.device, non_blocking=True)
+                            for k, v in b.items()} for b in host]
+                    metrics = step(dev, self._dropout_generators(
+                        block_start + sub_it))
+                    for k, v in metrics.items():
+                        acc.setdefault(k, []).append(v)
+                train_scalars = {'loss': float(torch.stack(acc['loss'])
+                                               .mean())}
+                cls_dice = np.mean([torch.stack(v).mean(0).cpu().numpy()
+                                    for k, v in acc.items()
+                                    if k.startswith('class_dice')], axis=0)
+                train_scalars['avg_dice'] = float(cls_dice.mean())
+                train_scalars['class_dice'] = cls_dice
+                t1 = time.time()
+                valid_scalars = self.validation()
+                t2 = time.time()
+                glob_it = block_start + iter_valid
+
+                scale = plateau.step(valid_scalars['plateau_metric'])
+                if plateau.enabled:
+                    for group in optimizer.param_groups:
+                        group['lr'] = cfg_t['learning_rate'] * scale
+
+                logging.info('it %d', glob_it)
+                logging.info('learning rate %s', lr_value)
+                logging.info('training/validation time: %.2fs/%.2fs; host '
+                             'wait %.4fs per iteration', t1 - t0, t2 - t1,
+                             wait / iter_valid)
+                self._write_scalars(writer, train_scalars, valid_scalars,
+                                    lr_value, glob_it, class_num)
+                writer.add_scalars('time', {'train': t1 - t0,
+                                            'valid': t2 - t1}, glob_it)
+                writer.add_scalar('host_wait', wait / iter_valid, glob_it)
+
+                if valid_scalars['avg_dice'] > max_val_dice:
+                    max_val_dice = valid_scalars['avg_dice']
+                    max_val_it = glob_it
+                    best_state = ckpt_lib.snapshot(module.state_dict())
+                stop_now = (early_stop_it is not None
+                            and glob_it - max_val_it > early_stop_it)
+                if glob_it in iter_save_list or stop_now:
+                    ckpt_writer.submit(ckpt_dir, prefix, glob_it, {
+                        'model_state_dict': module.state_dict(),
+                        'optimizer_state_dict': optimizer.state_dict()},
+                        valid_scalars['avg_dice'])
+                if stop_now:
+                    logging.info('The training is early stopped')
+                    break
+            # a final checkpoint and latest pointer also when iter_valid
+            # does not divide the run (the reference then saves none)
+            if glob_it > iter_start and glob_it not in iter_save_list:
+                ckpt_writer.submit(ckpt_dir, prefix, glob_it, {
+                    'model_state_dict': module.state_dict(),
+                    'optimizer_state_dict': optimizer.state_dict()},
+                    max_val_dice)
+            # the best-performing checkpoint (reference :809-828)
+            if best_state is not None:
+                ckpt_writer.submit(ckpt_dir, prefix, max_val_it, {
+                    'model_state_dict': best_state,
+                    'optimizer_state_dict': optimizer.state_dict()},
+                    max_val_dice, update_latest=False)
+            ckpt_writer.close()   # artifacts durable before the pointer
+        finally:
+            batches.close()       # stops the producer thread
+            writer.close()
+            try:
+                ckpt_writer.close()   # no-op on the success path
+            except Exception:
+                logging.exception('checkpoint writer close failed during '
+                                  'unwind')
+        ckpt_lib.write_best_pointer(ckpt_dir, prefix, max_val_it)
+        logging.info('The best performing iter is %d, valid dice %s',
+                     max_val_it, max_val_dice)
+
+    def _write_scalars(self, writer, train_scalars, valid_scalars, lr_value,
+                       glob_it, class_num):
+        writer.add_scalars('loss', {'train': train_scalars['loss'],
+                                    'valid': valid_scalars['loss']}, glob_it)
+        writer.add_scalars('dice', {'train': train_scalars['avg_dice'],
+                                    'valid': valid_scalars['avg_dice']},
+                           glob_it)
+        writer.add_scalar('lr', lr_value, glob_it)
+        for c in range(class_num):
+            writer.add_scalars('class_{0}_dice'.format(c), {
+                'train': float(train_scalars['class_dice'][c]),
+                'valid': float(valid_scalars['class_dice'][c])}, glob_it)
+        logging.info('train loss %.4f, avg foreground dice %.4f %s',
+                     train_scalars['loss'], train_scalars['avg_dice'],
+                     train_scalars['class_dice'])
+        logging.info('valid loss %.4f, avg foreground dice %.4f %s',
+                     valid_scalars['loss'], valid_scalars['avg_dice'],
+                     valid_scalars['class_dice'])
+
+    def validation(self) -> Dict:
+        """Per-domain whole-volume validation through the Inferer
+        (reference :509-604) with the training module in eval mode. The
+        volume is rounded per ``[testing] precision`` as the Inferer does
+        and the network computes in f32 (the module is never cast)."""
+        if self.inferer is None:
+            self.inferer = Inferer(dict(self.config['testing'],
+                                        output_mode='logits'), self.device)
+            self._valid_loss = create_loss_calculator(self.config)
+        module = self.module
+        per_domain = []
+        module.eval()
+        try:
+            for d, loader in enumerate(self.valid_loaders):
+                def predictor(x, d=d):
+                    return module(x.float(), d)
+                losses, dices = [], []
+                for data in loader:
+                    images = np.asarray(data['image'], np.float32)
+                    label_prob = torch.from_numpy(np.asarray(
+                        data['label_prob'], np.float32)).to(self.device)
+                    for i in range(images.shape[0]):
+                        pred = self.inferer.run_logits(predictor,
+                                                       images[i:i + 1])
+                        with torch.inference_mode():
+                            y = label_prob[i:i + 1]
+                            losses.append(self._valid_loss(
+                                {'prediction': pred, 'ground_truth': y}))
+                            dices.append(train_dice(pred, y))
+                per_domain.append((float(torch.stack(losses).mean()),
+                                   torch.stack(dices).mean(0).cpu().numpy()))
+        finally:
+            module.train()
+
+        loss0, cls_dice0 = per_domain[0]
+        if len(per_domain) == 2:
+            loss1, cls_dice1 = per_domain[1]
+            avg_loss = (loss0 + loss1) / 2
+            avg_cls_dice = (cls_dice0 + cls_dice1) / 2
+        else:
+            loss1, cls_dice1 = loss0, cls_dice0
+            avg_loss, avg_cls_dice = loss0, cls_dice0
+        cfg_t = self.config['training']
+        if cfg_t.get('val_t2', False) and len(per_domain) == 2:
+            sel = {'loss': loss1, 'avg_dice': float(cls_dice1.mean()),
+                   'class_dice': cls_dice1}
+        elif cfg_t.get('val_t1', False):
+            sel = {'loss': loss0, 'avg_dice': float(cls_dice0.mean()),
+                   'class_dice': cls_dice0}
+        else:
+            sel = {'loss': avg_loss, 'avg_dice': float(avg_cls_dice.mean()),
+                   'class_dice': avg_cls_dice}
+        sel['plateau_metric'] = float(avg_cls_dice.mean())
+        return sel
 
     def _selection_margins(self, data, dim):
         """Compose the test chain's inverse transforms into one spatial
@@ -134,6 +446,7 @@ class SegmentationAgent(NetRunAgent):
                 'an inverse transform that is not a crop is not yet ported')
         return margins
 
+    # -- inference ------------------------------------------------------------
     def infer(self):
         cfg_test = self.config['testing']
         domain_label = cfg_test.get('domian_label', 0)   # (sic) reference key

@@ -1,11 +1,15 @@
 """Command-line entry point.
 
-``python -m fpl_plus_torch.cli {test,inference} cfg [--device cpu]`` mirrors
-the FPL+ runner (PyMIC/pymic/net_run_dsbn/net_run.py:11-43): parse and
-synchronize the config, set up file+stdout logging in ``ckpt_save_dir`` and
-run the stage agent. It runs on the card (``cuda:0``) unless ``--device``
-(or ``main(..., device=...)``) names another device; without a card and
-without ``--device cpu`` it raises. ``train`` is not yet ported.
+``python -m fpl_plus_torch.cli {train,test,inference} cfg [--device cpu]``
+mirrors the FPL+ runner (PyMIC/pymic/net_run_dsbn/net_run.py:11-43): parse
+and synchronize the config, set up file+stdout logging in
+``ckpt_save_dir`` and run the stage agent; after ``train`` the test stage
+runs, reading the checkpoint the training wrote through its pointer file.
+It runs on the card (``cuda:0``) unless ``--device`` (or ``main(...,
+device=...)``) names another device; without a card and without
+``--device cpu`` it raises. A config with an ``[evaluation]`` section is
+refused at start-up: the evaluation after the test stage (``eva_main``) is
+not yet ported.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ def _setup_logging(log_path: str) -> None:
     root.setLevel(logging.INFO)
     for h in list(root.handlers):
         root.removeHandler(h)
+        h.close()
     root.addHandler(logging.FileHandler(log_path, mode='a'))
     root.addHandler(logging.StreamHandler(sys.stdout))
 
@@ -39,25 +44,29 @@ def main(argv=None, device=None):
     parser.add_argument('--device', default=None,
                         help='cuda[:i] (default cuda:0) or cpu')
     args = parser.parse_args(argv)
-    if args.stage == 'train':
-        raise NotImplementedError(
-            'the train stage is not yet ported (training slice, ROADMAP.md)')
     if not os.path.isfile(args.cfg):
         raise ValueError('The config file does not exist: {0}'.format(
             args.cfg))
     dev = resolve_device(device if device is not None else args.device)
     config = synchronize_config(parse_config(args.cfg))
+    task = config['dataset'].get('task_type', 'seg')
+    if task != 'seg':
+        raise NotImplementedError('task_type {0} is not yet ported'.format(
+            task))
+    if args.stage == 'train' and 'evaluation' in config:
+        raise NotImplementedError(
+            'the [evaluation] stage after training (eva_main) is not yet '
+            'ported; remove the section')
     apply_matmul_precision(config, args.stage)
     log_dir = config['training']['ckpt_save_dir']
     os.makedirs(log_dir, exist_ok=True)
     _setup_logging('{0}/log_{1}.txt'.format(log_dir, args.stage))
     logging_config(config)
 
-    task = config['dataset'].get('task_type', 'seg')
-    if task != 'seg':
-        raise NotImplementedError('task_type {0} is not yet ported'.format(
-            task))
     SegmentationAgent(config, args.stage, dev).run()
+    if args.stage == 'train':
+        # the auto test stage (reference net_run_dsbn/net_run.py:37-40)
+        SegmentationAgent(config, 'test', dev).run()
     return 0
 
 

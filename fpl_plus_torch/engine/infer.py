@@ -303,10 +303,17 @@ class Inferer:
 
     @torch.inference_mode()
     def run(self, predictor: Callable, image) -> np.ndarray:
+        return self._host(self.run_logits(predictor, image))
+
+    @torch.inference_mode()
+    def run_logits(self, predictor: Callable, image) -> torch.Tensor:
+        """``run`` before the output head, kept on the device: the
+        overlap- and TTA-averaged logits ``[1, K, *img]`` f32 (in-training
+        validation computes its loss and dice there)."""
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('inference processes one volume at a time')
-        return self._host(self._dev(predictor, image))
+        return self._dev(predictor, image)
 
     @torch.inference_mode()
     def run_batch(self, predictor: Callable, images) -> np.ndarray:

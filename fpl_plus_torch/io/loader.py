@@ -1,13 +1,25 @@
-"""Synchronous data loader (replaces torch.utils.data.DataLoader for the
-test stage; reference net_run_dsbn/agent_abstract.py:241-318).
+"""Synchronous data loader (replaces torch.utils.data.DataLoader;
+reference net_run_dsbn/agent_abstract.py:241-318) with the JAX package's
+sampling rules (``io/loader.py`` there, its ``num_workers=0`` path):
 
-Per-item seeding (``seed + items_served``) of the python/numpy RNG before
-each ``__getitem__``, in manifest order. Collation stacks equal-shaped
-arrays into a leading batch axis, turns scalars into [N] arrays and keeps
-strings as lists (the transform-inverse JSON params survive as singleton
-lists, like torch collation did in the reference). ``prefetch_iter`` decodes
-the next batch in a thread while the device works on the current one. The
-multiprocess worker pool belongs to the training slice.
+* ``shuffle``: epoch e visits the items in the order of
+  ``np.random.RandomState(seed + e).shuffle``; otherwise manifest order;
+* per-item seeding: the python/numpy RNG is seeded with ``seed + n`` before
+  the n-th ``__getitem__`` the loader serves (per epoch from
+  ``epoch * len(dataset)`` when iterated, counted across epochs by
+  ``stream``), so the random transforms' draws do not depend on how the
+  items are produced; a lock keeps loaders in two threads from
+  interleaving their draws;
+* ``drop_last`` drops a short final batch of an epoch;
+* ``stream()`` / ``repeat_loader``: an endless stream of full batches that
+  chains reshuffled epochs without a barrier (an epoch may end mid-batch).
+
+Collation stacks equal-shaped arrays into a leading batch axis, turns
+scalars into [N] arrays and keeps strings as lists (the transform-inverse
+JSON params survive as singleton lists, like torch collation did in the
+reference). ``prefetch_iter`` produces the next items in a thread while the
+device works on the current one. The JAX package's worker-process pool is
+not ported: ``num_workers`` is accepted and the loader stays synchronous.
 """
 from __future__ import annotations
 
@@ -19,9 +31,18 @@ from typing import Dict, Iterator, List
 import numpy as np
 
 
-def _seed_all(seed: int):
-    random.seed(seed)
-    np.random.seed(seed % (2 ** 32))
+# The python and numpy RNGs are process-wide. A loader holds this lock from
+# seeding an item to the end of its transforms, so a train stream produced
+# in a prefetch thread and a valid loader read in the main thread cannot
+# interleave their draws.
+_RNG_LOCK = threading.Lock()
+
+
+def _seeded_item(dataset, index: int, seed: int):
+    with _RNG_LOCK:
+        random.seed(seed)
+        np.random.seed(seed % (2 ** 32))
+        return dataset[index]
 
 
 def collate(samples: List[dict]) -> Dict[str, object]:
@@ -39,26 +60,70 @@ def collate(samples: List[dict]) -> Dict[str, object]:
 
 
 class DataLoader:
-    """In-order batches of ``batch_size`` (the last one may be short)."""
+    """Batches of ``batch_size`` items (see the module docstring)."""
 
-    def __init__(self, dataset, batch_size: int = 1, seed: int = 0):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _epoch_indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+        return idx
 
     def __iter__(self) -> Iterator[Dict[str, object]]:
+        indices = self._epoch_indices()
+        epoch_base = self._epoch * len(self.dataset)
+        self._epoch += 1
         buf = []
-        for i in range(len(self.dataset)):
-            _seed_all(self.seed + i)
-            buf.append(self.dataset[i])
+        for i, item_idx in enumerate(indices):
+            buf.append(_seeded_item(self.dataset, int(item_idx),
+                                    self.seed + epoch_base + i))
             if len(buf) == self.batch_size:
                 yield collate(buf)
                 buf = []
-        if buf:
+        if buf and not self.drop_last:
             yield collate(buf)
+
+    def stream(self) -> Iterator[Dict[str, object]]:
+        """Endless full batches over reshuffled epochs, no epoch barrier;
+        item n of the stream is seeded with ``seed + n``."""
+        if len(self.dataset) == 0:
+            raise ValueError('cannot stream from an empty dataset')
+        counter = 0
+        buf = []
+        while True:
+            for item_idx in self._epoch_indices():
+                buf.append(_seeded_item(self.dataset, int(item_idx),
+                                        self.seed + counter))
+                counter += 1
+                if len(buf) == self.batch_size:
+                    yield collate(buf)
+                    buf = []
+            self._epoch += 1
+
+
+def repeat_loader(loader) -> Iterator:
+    """Endless iterator over a loader (reference repeat_dataloader,
+    agent_seg.py:150-153): a DataLoader's ``stream``, else its epochs one
+    after the other."""
+    if isinstance(loader, DataLoader):
+        yield from loader.stream()
+    else:
+        while True:
+            yield from loader
 
 
 def prefetch_iter(iterable, depth: int = 2):

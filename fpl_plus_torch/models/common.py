@@ -13,9 +13,9 @@ from torch import nn
 class PReLU(nn.Module):
     """Parametric ReLU slope holder: one shared slope ``weight`` of shape
     [1], init 0.25 (torch ``nn.PReLU()`` layout, reference key
-    ``relu_{j}.weight``). The eval path applies it inside the fused
-    DSBN+PReLU kernel (``models/dsbn.py``), so this module owns the
-    parameter only."""
+    ``relu_{j}.weight``). ``models/dsbn.py`` applies it: inside the fused
+    DSBN+PReLU kernel in eval mode, as ``F.prelu`` after the batch
+    statistics in train mode. This module owns the parameter only."""
 
     def __init__(self, init_value: float = 0.25):
         super().__init__()

@@ -1,4 +1,4 @@
-"""Domain-Specific Batch Normalization (DSBN), eval mode.
+"""Domain-Specific Batch Normalization (DSBN).
 
 Reference semantics (PyMIC/pymic/net_run_dsbn/dsbn.py:4-64): a bank of
 independent BatchNorm layers, one per domain; the whole batch belongs to one
@@ -6,14 +6,25 @@ domain and ``bns[domain]`` is selected. Parameters and running statistics
 keep the reference key names ``bns.{d}.weight/bias/running_mean/
 running_var/num_batches_tracked``; statistics are f32 buffers, eps 1e-5.
 
-Only the eval path is ported: it normalises with the running statistics and
-applies the following PReLU in the same fused kernel. Train mode (batch
-statistics and the momentum update of the selected bank) belongs to the
-training slice in ROADMAP.md.
+* Eval mode normalises with the running statistics and applies the
+  following PReLU in the same fused kernel (``ops/dsbn_prelu.py``).
+* Train mode normalises with the batch statistics (over every axis but
+  channels, accumulated in f32 even for a bf16 input; biased variance) and
+  updates only the selected bank: momentum 0.1, unbiased variance
+  ``n / (n - 1)`` with n the batch times spatial size, and
+  ``num_batches_tracked`` + 1, as torch's BatchNorm does. PReLU then runs as
+  a second plain step, as in the JAX package's ``_norm_act``. Both steps are
+  PyTorch's own ``batch_norm`` and ``prelu``: the JAX package computes the
+  variance as ``E[x^2] - E[x]^2`` clamped at 0, which equals torch's to f32
+  rounding. The affine parameters enter ``batch_norm`` in the dtype of the
+  running statistics, f32 (the mixed-type form torch accepts for a bf16
+  input), so a bf16 forward normalises in f32 and rounds once; JAX rounds
+  the affine terms to bf16 first.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
@@ -33,6 +44,8 @@ class _Bank(nn.Module):
 
 
 class DomainBatchNorm(nn.Module):
+    momentum = 0.1
+
     def __init__(self, features: int, num_domains: int = 2,
                  eps: float = 1e-5):
         super().__init__()
@@ -41,12 +54,22 @@ class DomainBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, domain: int,
                 prelu_alpha: torch.Tensor) -> torch.Tensor:
-        """Eval DSBN of ``x [B, C, ...]`` with bank ``domain``, followed by
-        PReLU with slope ``prelu_alpha`` (one fused kernel on the card)."""
-        if self.training:
-            raise NotImplementedError(
-                'DSBN train mode is not yet ported (training slice, '
-                'ROADMAP.md); call model.eval()')
-        tables = [torch.stack([getattr(b, k) for b in self.bns])
-                  for k in ('weight', 'bias', 'running_mean', 'running_var')]
-        return dsbn_prelu(x, *tables, domain, prelu_alpha, self.eps)
+        """DSBN of ``x [B, C, ...]`` with bank ``domain``, followed by PReLU
+        with slope ``prelu_alpha``: one fused kernel on the card in eval
+        mode; batch statistics, the bank update and a separate PReLU in
+        train mode."""
+        if not self.training:
+            tables = [torch.stack([getattr(b, k) for b in self.bns])
+                      for k in ('weight', 'bias', 'running_mean',
+                                'running_var')]
+            return dsbn_prelu(x, *tables, domain, prelu_alpha, self.eps)
+        if not 0 <= domain < len(self.bns):
+            raise ValueError('domain {0} outside [0, {1})'.format(
+                domain, len(self.bns)))
+        bank = self.bns[domain]
+        stats = bank.running_mean.dtype
+        y = F.batch_norm(x, bank.running_mean, bank.running_var,
+                         bank.weight.to(stats), bank.bias.to(stats), True,
+                         self.momentum, self.eps)
+        bank.num_batches_tracked.add_(1)
+        return F.prelu(y, prelu_alpha.to(y.dtype))

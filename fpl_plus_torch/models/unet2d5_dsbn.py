@@ -15,9 +15,11 @@ Module names are the reference checkpoint keys (``block{i}.conv.conv{D}d_{j}``,
 ``bn{D}d{j}.bns.{d}``, ``relu_{j}``, ``up{j}.trans{D}d`` / ``up{j}.conv{D}d``,
 ``out_conv``), so reference ``.pt`` state dicts load with ``strict=True``.
 Unlike the reference, a block allocates only the conv dimension it uses.
-DSBN runs in eval mode (``models/dsbn.py``); dropout is on only when the
-forward is given ``dropout_generators`` (MC-dropout at test time), never
-through ``module.train()``.
+DSBN follows ``module.train()`` / ``.eval()`` (``models/dsbn.py``: batch
+statistics and the bank update, or the fused eval kernel). Dropout is on
+only when the forward is given ``dropout_generators``, never through
+``module.train()``: the train step passes one generator per domain forward,
+MC-dropout at test time one per pass.
 """
 from __future__ import annotations
 

@@ -25,7 +25,12 @@ convolutions produce: no channels-last transpose, no row padding.
   bfloat16``; the wrapper upcasts them to f32, as the TPU kernel does.
 
 ``dsbn_prelu`` takes the plain version ``dsbn_prelu_reference`` only for a
-CPU tensor. For a CUDA tensor it launches the kernel or raises.
+CPU tensor. For a CUDA tensor it launches the kernel or raises. The kernel
+has no backward (the TPU kernel has none either: train-mode DSBN never
+reaches it), so a CUDA call with grad mode on and any input that requires
+grad raises instead of returning a tensor whose affine parameters and slope
+would silently get no gradient. Eval forwards run under ``torch.no_grad()``
+or ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -117,13 +122,20 @@ def dsbn_prelu(x, scale, bias, mean, var, domain, alpha, eps: float = 1e-5):
     """Fused eval DSBN + PReLU on ``x [B, C, *spatial]`` with per-domain
     tables ``[n_domains, C]``, a Python-int ``domain`` and a one-element
     slope ``alpha``. CPU tensor: the plain version. CUDA tensor: the Triton
-    kernel (counted in ``dsbn_prelu.launches``)."""
+    kernel (counted in ``dsbn_prelu.launches``); it raises when autograd
+    would need its backward."""
     d = _check(x, scale, bias, mean, var, domain, alpha)
     if x.device.type == 'cpu':
         return dsbn_prelu_reference(x, scale, bias, mean, var, d, alpha, eps)
     if x.device.type != 'cuda':
         raise ValueError('dsbn_prelu runs on cpu or cuda, got {0}'.format(
             x.device))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias, mean, var, alpha)):
+        raise RuntimeError(
+            'the dsbn_prelu kernel has no backward: run the eval forward '
+            'under torch.no_grad() (train mode uses batch statistics and '
+            'never reaches the kernel)')
     triton, kernel = _kernel()
     c = x.shape[1]
     rows = x.shape[0] * c

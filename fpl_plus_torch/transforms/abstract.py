@@ -33,6 +33,19 @@ class AbstractTransform(object):
         into one crop of the label map computed on the device."""
         return None
 
+    def cache_safe(self) -> bool:
+        """True when this transform is a deterministic function of the
+        sample (no random draw, no per-call state), so a dataset may cache
+        its output across epochs (``io/dataset.py``). Default: False."""
+        return False
+
+    def precompute(self, sample):
+        """Hook for a random transform right after a cached deterministic
+        prefix: stash a value that is a deterministic function of the
+        sample (RandomCrop's foreground box) under a ``<Name>_*`` JSON key
+        once per cached item. Draws no random numbers. Default: no-op."""
+        return sample
+
     # -- helpers ----------------------------------------------------------
     def param(self, name, default=..., ):
         """Fetch ``<Prefix>_<name>`` (lower-cased) from the config params."""

@@ -35,6 +35,10 @@ class NormalizeWithMeanStd(AbstractTransform):
         self.ignore_np = self.param('ignore_non_positive', False)
         self.inverse = self.param('inverse', False)
 
+    def cache_safe(self):
+        # ignore_non_positive fills the background with fresh noise
+        return not self.ignore_np
+
     def __call__(self, sample):
         image = sample['image']
         chns = self.chns if self.chns is not None else range(image.shape[0])

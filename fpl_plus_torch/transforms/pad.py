@@ -21,6 +21,9 @@ class Pad(AbstractTransform):
         self.ceil_mode = self.param('ceil_mode', False)
         self.inverse = self.param('inverse', True)
 
+    def cache_safe(self):
+        return True
+
     def __call__(self, sample):
         input_shape = sample['image'].shape
         spatial_shape = input_shape[1:]

@@ -1,11 +1,17 @@
-"""Inference precision policy: bf16 compute with f32 state.
+"""Precision policy: bf16 compute with f32 state.
 
-``[testing] precision = bfloat16`` casts the network's parameters to bf16
-while the DSBN running statistics (buffers) stay f32, and the Inferer casts
-the volume on the host (round to nearest even). Sliding-window accumulation
-and TTA averaging stay f32. ``matmul_precision = highest`` turns TF32 off
-for cuDNN convolutions and matmuls; otherwise PyTorch's defaults hold (f32
-convolutions run in TF32 on the card).
+* ``[testing] precision = bfloat16`` casts the network's parameters to bf16
+  while the DSBN running statistics (buffers) stay f32, and the Inferer
+  casts the volume on the host (round to nearest even). Sliding-window
+  accumulation and TTA averaging stay f32.
+* ``[training] precision = bfloat16`` never casts the module: the train
+  step forwards bf16 copies of the f32 master parameters
+  (``engine/train.py``). In-training validation rounds the volume as the
+  Inferer does and computes in f32 with the training module, as the JAX
+  package's validation promotes a bf16 volume against f32 variables.
+* ``matmul_precision = highest`` turns TF32 off for cuDNN convolutions and
+  matmuls; otherwise PyTorch's defaults hold (f32 convolutions run in TF32
+  on the card).
 """
 from __future__ import annotations
 
@@ -33,7 +39,12 @@ def resolve_dtype(name) -> Optional[torch.dtype]:
 def cast_infer_module(module: nn.Module, precision) -> nn.Module:
     """Cast the f32 parameters to the compute dtype in place; buffers (the
     DSBN running statistics) keep f32. ``module.to(dtype)`` would cast the
-    buffers too."""
+    buffers too.
+
+    In place: for a module loaded only to serve. Never call it on a module
+    that is still training, whose f32 parameters are the optimizer's
+    masters (the train step and in-training validation leave the module's
+    dtype alone)."""
     dtype = resolve_dtype(precision)
     if dtype is not None:
         for p in module.parameters():

@@ -160,8 +160,10 @@ def test_port_batched_and_bf16_stages(workspace):
 
 def test_cli_refuses_what_is_not_ported(workspace):
     cfg = _cfg(workspace, 'torch.cfg', 'out_torch')
+    evaluation = _cfg(workspace, 'eval.cfg', 'out_eval',
+                      extra='\n[evaluation]\nmetric_1 = dice')
     with pytest.raises(NotImplementedError, match='not yet ported'):
-        torch_main(['train', cfg], device='cpu')
+        torch_main(['train', evaluation], device='cpu')
     ens = _cfg(workspace, 'ens.cfg', 'out_ens')
     with open(ens) as f:
         text = f.read().replace('ckpt_mode = 0', 'ckpt_mode = 3')

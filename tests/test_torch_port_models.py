@@ -122,8 +122,8 @@ def test_param_count_matches_jax_at_net_cfg():
 def test_dsbn_train_mode_and_unported_nets_raise():
     net = create_network(SMALL)
     net.train()
-    with pytest.raises(NotImplementedError, match='train mode'):
-        net(torch.zeros(1, 1, 8, 32, 32), 0)
+    with pytest.raises(ValueError, match='outside'):
+        net(torch.zeros(1, 1, 8, 32, 32), 2)
     with pytest.raises(NotImplementedError, match='not yet ported'):
         create_network(dict(SMALL, net_type='UNet3D'))
     with pytest.raises(ValueError, match='Undefined network'):
