@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
-It builds the port's Triton kernel from this checkout (cache under
-``build/triton``), then runs, each phase failing the script on any error:
+It builds the port's Triton kernel (cache under ``build/triton``) and the
+evaluation's C++ distance transform (``build/native``) from this checkout,
+then runs, each phase failing the script on any error:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. kernel: ``dsbn_prelu`` (Triton) against ``dsbn_prelu_reference`` (plain
@@ -49,14 +50,38 @@ It builds the port's Triton kernel from this checkout (cache under
     bf16; TFLOP per step counted from the module shapes;
 13. train: ``fpl_plus_torch.cli train`` on labelled 40x160x272 volumes
     (generator run, 4 iterations with validation and checkpoints every 2,
-    then the auto test stage), then the weighted segmentor run that resumes
-    it at iteration 4 on phase 9's CSV (``train_fpl_uda``, bf16, to
-    iteration 6): checkpoints and pointers, the resumed optimizer's step
-    count, finite losses, the host wait per iteration, and validation and
-    auto-test launches equal to 18 x the eval-mode forwards.
+    then the auto test stage and the ``[evaluation]`` reports, dice and
+    assd), then the weighted segmentor run that resumes it at iteration 4
+    on phase 9's CSV (``train_fpl_uda``, bf16, to iteration 6): checkpoints
+    and pointers, the resumed optimizer's step count, finite losses, the
+    host wait per iteration, and validation and auto-test launches equal to
+    18 x the eval-mode forwards;
+14. evaluation: the CSVs ``eva_main`` wrote in phase 13 are finite, ``python
+    -m fpl_plus_torch.metrics`` alone writes the same ones, seconds per
+    volume; the C++ distance transform against its plain version on a crop
+    of an edge map, and its time on one whole 40x160x272 edge map;
+15. training variants through ``cli train``, 2 iterations each at f32:
+    ``dual = False`` (alternating), ``grad_accum_steps = 2`` (2 + 2 crops
+    per microbatch), ``dis = True`` and ``dual_consistency = True`` (an
+    ``image1`` column, ``consistency_start = 0``): Adam's update count (2
+    per iteration for alternating and dual consistency, else 1), finite
+    losses (``loss_dis``, ``loss_consis``), the discriminator in the
+    checkpoint, launches equal to 18 x the eval-mode forwards counting the
+    steps' own, CUDA-event ms per step and peak device memory;
+16. card vs CPU: one full-width alternating step and one dual-consistency
+    step at gate 1 (SGD, TF32 off, dropout 0, 1 + 1 crops), phase 11's
+    tolerances on loss, dice, the second update's gradients and the
+    statistics;
+17. test paths through the CLI: ``infer_device_label = False`` (host
+    inverse; labels against phase 4's) and the FPL host fallback
+    (uncertainties against phase 7's), ``ckpt_mode = 3`` over phase 13's
+    ``train_2.pt`` and ``train_4.pt`` and over ``[train_4, train_4]``
+    (labels equal to one checkpoint's), and a CenterCrop chain; launches
+    and ms per volume of each.
 
-Each main-path run (phases 4, 7, 8, 13) sets the launch counter to 0 just
-before it and reads it just after. Then it prints one ``{"kernels": [...]}``
+Each main-path run (phases 4, 7, 8, 13, 15, 17) sets the launch counter to
+0 just before it and reads it just after. Then it prints one
+``{"kernels": [...]}``
 line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
 non-zero and prints no result.
@@ -70,6 +95,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -91,6 +117,7 @@ FPL_PASSES = 6
 FPL_BATCH = FPL_PASSES * BATCH           # the FPL pass's forward batch
 SERVE_BATCH = 3                          # test_batch_size of phase 8
 FOLD_VOLUME = (28, 128, 256)             # phase 6: 2 windows, one chunk
+CROP_VOLUME = (40, 144, 256)             # phase 17's CenterCrop
 DOMAIN = 1
 SEED = 20261016
 # tolerances: f32 -- the same f32 arithmetic, rsqrt/division rounded by
@@ -139,9 +166,10 @@ root_dir = {root}
 modal_num = 1
 test_csv = {root}/target_test.csv
 test_batch_size = {batch}
-test_transform = [NormalizeWithMeanStd, Pad]
+test_transform = {chain}
 NormalizeWithMeanStd_channels = [0]
 Pad_output_size = [28, 128, 128]
+CenterCrop_output_size = {crop}
 
 [network]
 net_type = UNet2D5_dsbn
@@ -157,7 +185,7 @@ bilinear = False
 ckpt_save_dir = {root}/model/gen
 
 [testing]
-ckpt_mode = 0
+ckpt_mode = {mode}
 domian_label = 1
 output_dir = {root}/{out}
 sliding_window_enable = True
@@ -398,6 +426,25 @@ def timed_method(cls, name, sink):
 
 
 @contextlib.contextmanager
+def timed_function(module, name, sink):
+    """Record the host seconds of every call of ``module.name`` in
+    ``sink`` (for host-side work such as the evaluation)."""
+    orig = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
 def counting_forwards():
     """Count the eval-mode network forwards (calls of a UNet2D5DSBN) in the
     block: the forwards that reach the kernel (train-mode forwards use
@@ -416,11 +463,13 @@ def counting_forwards():
         hook.remove()
 
 
-def write_cfg(root, tag, precision='float32', batch=1, extra=''):
+def write_cfg(root, tag, precision='float32', batch=1, extra='', mode=0,
+              chain='[NormalizeWithMeanStd, Pad]'):
     cfg = os.path.join(root, tag + '.cfg')
     with open(cfg, 'w') as f:
         f.write(CFG.format(root=root, out='out_' + tag, precision=precision,
-                           batch=batch, extra=extra))
+                           batch=batch, extra=extra, mode=mode, chain=chain,
+                           crop=list(CROP_VOLUME)))
     return cfg
 
 
@@ -566,7 +615,9 @@ def fpl_phase(root, dev, names, fwd_per_volume):
               'fpl values {0}'.format(values))
         results[precision] = {'vol_ms': ms, 'launches': launches,
                               'forwards': forwards[0], 'peak': peak,
-                              'values': values, 'npy': npy}
+                              'values': values, 'npy': npy,
+                              'by_name': {str(e[1]): v for e, v in
+                                          zip(entries, values)}}
         print('fpl {0}: {1} volumes through fpl_plus_torch.cli, '
               'run_fpl_uncertainty ms per volume {2}, {3} forwards of batch '
               '{4}, {5} kernel launches, peak device memory {6:.2f} GiB, '
@@ -853,8 +904,8 @@ modal_num = 1
 1_valid_csv = {root}/d0_valid.csv
 2_valid_csv = {root}/d1_valid.csv
 test_csv = {root}/target_test.csv
-train_batch_size = 4
-train_transform = [NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip, LabelToProbability]
+train_batch_size = {batch}
+train_transform = {train_chain}
 valid_transform = [NormalizeWithMeanStd, Pad, LabelToProbability]
 test_transform = [NormalizeWithMeanStd, Pad]
 NormalizeWithMeanStd_channels = [0]
@@ -878,7 +929,7 @@ dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
 bilinear = False
 
 [training]
-dual = True
+dual = {dual}
 train_fpl_uda = {fpl_uda}
 val_t2 = True
 loss_type = DiceLoss
@@ -894,7 +945,8 @@ iter_max = {iter_max}
 iter_valid = 2
 iter_save = 2
 precision = {precision}
-ckpt_save_dir = {root}/model/train
+ckpt_save_dir = {root}/model/{ckpt}
+{extra}
 
 [testing]
 ckpt_mode = 0
@@ -905,7 +957,32 @@ sliding_window_size = [28, 128, 128]
 sliding_window_stride = [28, 128, 128]
 tta_mode = 1
 patch_chunk = 2
+{evaluation}
 """
+TRAIN_CHAIN = ('[NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip, '
+               'LabelToProbability]')
+EVAL_SECTION = """
+[evaluation]
+metric_1 = dice
+metric_2 = assd
+label_list = [1]
+organ_name = block
+ground_truth_folder_root = {root}
+test_evaluation_image_pair = {root}/test_pairs.csv
+"""
+
+
+def train_cfg(root, tag, d1_train='d1_train.csv', fpl_uda=False, start=0,
+              stop=2, precision='float32', ckpt='train', batch=TRAIN_BATCH,
+              chain=TRAIN_CHAIN, dual=True, extra='', evaluation=''):
+    cfg = os.path.join(root, 'train_{0}.cfg'.format(tag))
+    with open(cfg, 'w') as f:
+        f.write(TRAIN_CFG.format(
+            root=root, d1_train=d1_train, fpl_uda=fpl_uda, iter_start=start,
+            iter_max=stop, precision=precision, tag=tag, ckpt=ckpt,
+            batch=batch, train_chain=chain, dual=dual, extra=extra,
+            evaluation=evaluation))
+    return cfg
 
 
 def write_train_workspace(root, names, rel_csv):
@@ -937,6 +1014,16 @@ def write_train_workspace(root, names, rel_csv):
                       'w') as f:
                 f.write('image,label\n' + ''.join(
                     '{0},{1}\n'.format(*r) for r in rows[d]))
+    # the dual-consistency variant's target manifest: a domain-0 volume
+    # stands in for each volume's fake-source translation (image1)
+    with open(os.path.join(root, 'd1_train_image1.csv'), 'w') as f:
+        f.write('image,label,image1\n' + ''.join(
+            '{0},{1},{2}\n'.format(a, b, rows[0][i % 2][0])
+            for i, (a, b) in enumerate(rows[1])))
+    # the evaluation's (ground truth, auto-test label) pairs
+    with open(os.path.join(root, 'test_pairs.csv'), 'w') as f:
+        f.write('ground_truth,segmentation\n' + ''.join(
+            '{0},{1}\n'.format(b, os.path.basename(a)) for a, b in rows[1]))
     with open(os.path.join(root, 'train_weighted.csv'), newline='') as f:
         weighted = list(csv.reader(f))
     with open(os.path.join(root, rel_csv), 'w') as f:
@@ -960,15 +1047,14 @@ def train_cli_phase(root, names, fwd_per_volume):
     for tag, d1_train, fpl_uda, start, stop, precision in (
             ('gen', 'd1_train.csv', False, 0, 4, 'float32'),
             ('seg', 'train_weighted_rel.csv', True, 4, 6, 'bfloat16')):
-        cfg = os.path.join(root, 'train_{0}.cfg'.format(tag))
-        with open(cfg, 'w') as f:
-            f.write(TRAIN_CFG.format(
-                root=root, d1_train=d1_train, fpl_uda=fpl_uda,
-                iter_start=start, iter_max=stop, precision=precision,
-                tag=tag))
-        step_ms, valid_ms = [], []
+        # the generator run evaluates its auto-test labels (eva_main)
+        cfg = train_cfg(root, tag, d1_train, fpl_uda, start, stop, precision,
+                        evaluation=EVAL_SECTION.format(root=root)
+                        if tag == 'gen' else '')
+        step_ms, valid_ms, eval_s = [], [], []
         with timed_method(JointTrainStep, '__call__', step_ms), \
                 timed_method(SegmentationAgent, 'validation', valid_ms), \
+                timed_function(cli, 'eva_main', eval_s), \
                 counting_forwards() as forwards:
             dsbn_prelu.launches = 0      # the main path's count starts here
             rc = cli.main(['train', cfg])
@@ -1008,12 +1094,15 @@ def train_cli_phase(root, names, fwd_per_volume):
               and adam_steps == {stop},
               'optimizer step count {0} / {1} after iteration {2}'.format(
                   opt['param_groups'][0]['update_count'], adam_steps, stop))
-        labels = os.listdir(os.path.join(root, 'out_train_' + tag,
-                                         'train_target_test'))
+        labels = [n for n in os.listdir(os.path.join(
+            root, 'out_train_' + tag, 'train_target_test'))
+            if n.endswith('.nii.gz')]
         check(len(labels) == N_VOLUMES, 'auto test labels {0}'.format(
             labels))
+        check(len(eval_s) == (tag == 'gen'), 'eva_main calls {0}'.format(
+            len(eval_s)))
         runs[tag] = {'launches': launches, 'forwards': forwards[0],
-                     'step_ms': step_ms,
+                     'step_ms': step_ms, 'eval_s': eval_s,
                      'valid_ms': [t / valid_volumes for t in valid_ms],
                      'host_wait_s': wait, 'losses': losses}
         print('train {0}: iterations {1}..{2} ({3}), {4} steps at {5} ms '
@@ -1028,6 +1117,362 @@ def train_cli_phase(root, names, fwd_per_volume):
                   forwards[0], launches,
                   ['{0:.4f}'.format(v) for v in losses], stop))
     return runs
+
+
+EVAL_ONLY_CFG = """
+[evaluation]
+metric_1 = dice
+metric_2 = assd
+label_list = [1]
+organ_name = block
+ground_truth_folder_root = {root}
+segmentation_folder_root = {seg}
+test_evaluation_image_pair = {root}/test_pairs.csv
+"""
+
+
+def read_csv(path):
+    with open(path, newline='') as f:
+        return list(csv.reader(f))
+
+
+def evaluation_phase(root, train):
+    """(14) The CSVs ``eva_main`` wrote after phase 13's auto test, the same
+    reports from ``python -m fpl_plus_torch.metrics`` alone, the C++
+    distance against its plain version on a crop, and its time on one
+    full edge map."""
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.metrics.seg_metrics import get_edge_points
+    from fpl_plus_torch.native import (raster_scan_distance,
+                                       raster_scan_reference)
+    seg = os.path.join(root, 'out_train_gen', 'train_target_test')
+    outs = ['test_block_{0}_all.csv'.format(m) for m in ('dice', 'assd')]
+    in_train = {}
+    for name in outs:
+        rows = read_csv(os.path.join(seg, name))
+        values = [float(r[1]) for r in rows[1:]]
+        check(rows[0] == ['image', 'class_1'] and len(rows) == N_VOLUMES + 3
+              and all(np.isfinite(values)), '{0}: {1}'.format(name, rows))
+        in_train[name] = rows
+    cfg = os.path.join(root, 'eval_only.cfg')
+    with open(cfg, 'w') as f:
+        f.write(EVAL_ONLY_CFG.format(root=root, seg=seg))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-m', 'fpl_plus_torch.metrics', cfg],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    standalone_s = time.perf_counter() - t0
+    check(r.returncode == 0, 'python -m fpl_plus_torch.metrics: {0}'.format(
+        r.stderr[-2000:]))
+    for name in outs:
+        check(read_csv(os.path.join(seg, name)) == in_train[name],
+              'standalone {0} differs from the in-train one'.format(name))
+    per_volume = float(np.sum(train['gen']['eval_s'])) / N_VOLUMES
+    lab = load_image_as_nd_array(os.path.join(root, 'lab', 'case0.nii.gz'))[
+        'data_array'][0] > 0
+    edge = get_edge_points(lab)
+    spacing = load_image_as_nd_array(os.path.join(
+        root, 'lab', 'case0.nii.gz'))['spacing']
+    crop = edge[10:16, 52:76, 92:116]
+    got = raster_scan_distance(crop, spacing)
+    want = raster_scan_reference(crop, spacing)
+    err = float(np.max(np.abs(got - want) / np.maximum(want, 1e-6)))
+    check(err <= 1e-5 and crop.any(), 'C++ distance vs plain rel err '
+          '{0}'.format(err))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        full = raster_scan_distance(edge, spacing)
+        times.append(time.perf_counter() - t0)
+    check(bool(np.isfinite(full).all()), 'distance map not finite')
+    print('evaluation: eva_main after the auto test {0:.3f} s per volume '
+          '(dice + assd, {1} volumes; host); {2}; python -m '
+          'fpl_plus_torch.metrics alone {3:.2f} s, same CSVs; C++ distance '
+          'vs plain on a {4} crop: max rel err {5:.3g}; C++ distance on one '
+          '{6} edge map median {7:.3f} s (host)'.format(
+              per_volume, N_VOLUMES, {n: in_train[n][-2][1] for n in outs},
+              standalone_s, list(crop.shape), err, list(edge.shape),
+              float(np.median(times))))
+    return {'s_per_volume': per_volume, 'distance_s': float(np.median(times)),
+            'distance_err': err, 'standalone_s': standalone_s}
+
+
+def variants_phase(root, fwd_per_volume):
+    """(15) The training variants through ``cli train``, 2 iterations each
+    at f32: alternating, accumulation (2 + 2 crops per microbatch), the
+    discriminator and dual consistency (``image1``, gate from it 0)."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.train import (AlternatingTrainStep,
+                                             DiscriminatorStep,
+                                             DualConsistencyStep,
+                                             JointTrainStep)
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    dual = ('[NormalizeWithMeanStd_dual, Pad_dual, RandomCrop, RandomFlip, '
+            'LabelToProbability]')
+    # tag: (step classes timed, dual, extra [training] keys, batch, updates
+    #       per iteration, eval forwards per iteration inside the step,
+    #       domain-1 manifest, train chain)
+    variants = {
+        'alt': ((AlternatingTrainStep,), False, '', TRAIN_BATCH, 2, 0,
+                'd1_train.csv', TRAIN_CHAIN),
+        'accum': ((JointTrainStep,), True, 'grad_accum_steps = 2', 2, 1, 0,
+                  'd1_train.csv', TRAIN_CHAIN),
+        'dis': ((JointTrainStep, DiscriminatorStep), True, 'dis = True',
+                TRAIN_BATCH, 1, 2, 'd1_train.csv', TRAIN_CHAIN),
+        'consis': ((DualConsistencyStep,), True,
+                   'dual_consistency = True\nconsistency_start = 0',
+                   TRAIN_BATCH, 2, 1, 'd1_train_image1.csv', dual),
+    }
+    valid_volumes = 2 + N_VOLUMES
+    results = {}
+    for tag, (classes, dual_step, extra, batch, upi, step_evals, d1_train,
+              chain) in variants.items():
+        ckpt = 'var_' + tag
+        cfg = train_cfg(root, tag, d1_train, ckpt=ckpt, batch=batch,
+                        chain=chain, dual=dual_step, extra=extra)
+        sinks = {c.__name__: [] for c in classes}
+        with contextlib.ExitStack() as stack:
+            for c in classes:
+                stack.enter_context(timed_method(c, '__call__',
+                                                 sinks[c.__name__]))
+            forwards = stack.enter_context(counting_forwards())
+            torch.cuda.reset_peak_memory_stats()
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['train', cfg])
+            launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, 'variant {0} rc {1}'.format(tag, rc))
+        n_eval = (valid_volumes + N_VOLUMES) * fwd_per_volume + 2 * step_evals
+        check(forwards[0] == n_eval, '{0}: {1} eval forwards, expected {2}'
+              .format(tag, forwards[0], n_eval))
+        check(launches == 18 * forwards[0], '{0}: {1} launches for {2} eval '
+              'forwards'.format(tag, launches, forwards[0]))
+        ckpt_dir = os.path.join(root, 'model', ckpt)
+        saved = torch.load(os.path.join(ckpt_dir, ckpt + '_2.pt'),
+                           map_location='cpu', weights_only=False)
+        opt = saved['optimizer_state_dict']
+        steps = {int(v['step']) for v in opt['state'].values()}
+        check(opt['param_groups'][0]['update_count'] == 2 * upi
+              and steps == {2 * upi}, '{0}: update count {1} / {2}'.format(
+                  tag, opt['param_groups'][0]['update_count'], steps))
+        if tag == 'dis':
+            check('dis_state_dict' in saved
+                  and 'dis_optimizer_state_dict' in saved,
+                  'no discriminator state in the checkpoint')
+        recs = [json.loads(line) for line in open(os.path.join(
+            ckpt_dir, 'scalars.jsonl'))]
+        scalars = {r['tag']: r for r in recs}
+        losses = [scalars['loss']['train'], scalars['loss']['valid']]
+        for key in {'dis': ['loss_dis'], 'consis': ['loss_consis']}.get(
+                tag, []):
+            losses.append(scalars[key]['train'])
+        check(all(np.isfinite(losses)), '{0} losses {1}'.format(tag, losses))
+        step_ms = [sum(ms) for ms in zip(*sinks.values())]
+        check(len(step_ms) == 2, '{0}: {1} steps'.format(tag, len(step_ms)))
+        results[tag] = {'launches': launches, 'forwards': forwards[0],
+                        'step_ms': step_ms, 'peak_gib': peak,
+                        'losses': losses, 'updates': 2 * upi}
+        print('variant {0} (dual = {1}): 2 iterations, step ms {2} (CUDA '
+              'events, the first with warm-up{3}), peak device memory '
+              '{4:.2f} GiB, '
+              '{5} updates, losses {6}, {7} eval forwards ({8} in the '
+              'steps), {9} kernel launches'.format(
+                  tag, '{0}{1}'.format(dual_step, ', ' + extra.replace(
+                      '\n', ', ') if extra else ''),
+                  ['{0:.1f}'.format(t) for t in step_ms],
+                  '; segmenter + discriminator step' if tag == 'dis' else '',
+                  peak, 2 * upi, ['{0:.4f}'.format(v) for v in losses],
+                  forwards[0], 2 * step_evals, launches))
+    return results
+
+
+def make_variant_step(kind, net):
+    """The alternating or dual-consistency step with plain SGD: Adam would
+    turn the rounding-noise gradients of the convolution biases in front of
+    a DSBN (zero in exact arithmetic) into +-rate moves of their own sign
+    on each side, which the second update's forward then reads."""
+    from fpl_plus_torch.engine.optim import create_optimizer
+    from fpl_plus_torch.engine.train import (AlternatingTrainStep,
+                                             DualConsistencyStep)
+    from fpl_plus_torch.losses import create_loss_calculator
+    cfg = {'optimizer': 'SGD', 'learning_rate': 1e-4, 'weight_decay': 0.0,
+           'loss_type': 'DiceLoss'}
+    args = (net.train(), create_loss_calculator({'training': cfg}),
+            create_optimizer(cfg, net.parameters()))
+    if kind == 'alternating':
+        return AlternatingTrainStep(*args, num_domains=2, fpl_uda=True,
+                                    entropy_coeff=1.0)
+    return DualConsistencyStep(*args, fpl_uda=True)
+
+
+def variant_check_phase(dev):
+    """(16) One alternating and one dual-consistency step (gate 1) of the
+    full-width network with SGD, card vs CPU (TF32 off, dropout 0, 1 + 1
+    crops): loss, class dice, the second update's gradients and the DSBN
+    running statistics, by phase 11's tolerances."""
+    from fpl_plus_torch.models.registry import create_network
+    net = create_network(dict(NET_CFG, dropout=[0.0] * 5))
+    init_random_(net, SEED + 9)
+    # logits of order 1 (He-initialised random weights give ~100), so that
+    # the consistency MSE is of the order of the Dice loss and phase 11's
+    # absolute loss tolerance means the same for both steps
+    with torch.no_grad():
+        net.out_conv.weight.mul_(0.02)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    batches = [train_inputs(gen, 1, 'cpu') for _ in range(2)]
+    batches[1]['image1'] = batches[1]['image'] * 0.7 + 0.3 * torch.randn(
+        batches[1]['image'].shape, generator=gen)
+    out = {}
+    for kind in ('alternating', 'consistency'):
+        net_dev = copy.deepcopy(net).to(dev)
+        net_cpu = copy.deepcopy(net)
+        args = ([None] * 3, 1.0) if kind == 'consistency' else ([None] * 2,)
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = make_variant_step(kind, net_dev)(
+                [{k: v.to(dev) for k, v in b.items()} for b in batches],
+                *args)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32, \
+                torch.backends.cuda.matmul.allow_tf32 = flags
+        want = make_variant_step(kind, net_cpu)(batches, *args)
+        loss_err = abs(float(got['loss']) - float(want['loss']))
+        dice_err = max(float((got[k].cpu() - want[k]).abs().max())
+                       for k in ('class_dice_0', 'class_dice_1'))
+        grads = {k: p.grad for k, p in net_cpu.named_parameters()}
+        top = max(float(g.abs().max()) for g in grads.values())
+        worst, worst_name = 0.0, None
+        for name, p in net_dev.named_parameters():
+            err = float((p.grad.cpu() - grads[name]).abs().max())
+            ratio = err / (GRAD_RTOL * float(grads[name].abs().max())
+                           + GRAD_NET_TOL * top)
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        cpu_sd = net_cpu.state_dict()
+        stats_err = max(
+            float((t.cpu() - cpu_sd[n]).abs().max() / cpu_sd[n].abs().max())
+            for n, t in net_dev.state_dict().items()
+            if n.endswith(('running_mean', 'running_var')))
+        consis = ''
+        if kind == 'consistency':
+            consis = '; loss_consis {0!r} vs {1!r}'.format(
+                float(got['loss_consis']), float(want['loss_consis']))
+        print('variant step {0} card vs CPU (full width, 1+1 crops, SGD, '
+              'TF32 off): loss {1!r} vs {2!r} (abs err {3:.3g}, tolerance '
+              '{4}); class dice max abs err {5:.3g}; the second update\'s '
+              'gradients: worst tensor {6} at {7:.3g} of its tolerance; DSBN '
+              'running statistics max rel err {8:.3g} (tolerance {9}){10}'
+              .format(kind, float(got['loss']), float(want['loss']),
+                      loss_err, STEP_LOSS_TOL, dice_err, worst_name, worst,
+                      stats_err, STATS_TOL, consis))
+        check(loss_err <= STEP_LOSS_TOL, kind + ' step loss disagrees')
+        check(dice_err <= STEP_DICE_TOL, kind + ' step dice disagrees')
+        check(worst <= 1.0, '{0} step gradient {1} disagrees'.format(
+            kind, worst_name))
+        check(stats_err <= STATS_TOL, kind + ' DSBN statistics disagree')
+        out[kind] = {'loss_err': loss_err, 'grad_worst': worst,
+                     'stats_err': stats_err}
+        del net_dev
+        torch.cuda.empty_cache()
+    return out
+
+
+def test_paths_phase(root, names, serving, fpl):
+    """(17) The test stage's other paths through the CLI on the phase-4
+    volumes: the host path (``infer_device_label = False``) against the
+    device-label labels, the FPL host fallback against phase 7, checkpoint
+    ensembles of phase 13's checkpoints, and a CenterCrop chain."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer, window_grid
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    ckpt_dir = os.path.join(root, 'model', 'train')
+    train2, train4 = (os.path.join(ckpt_dir, 'train_{0}.pt'.format(i))
+                      for i in (2, 4))
+    crop_fwd = -(-len(window_grid(CROP_VOLUME, WINDOW, WINDOW))
+                 // PATCH_CHUNK)
+    fwd = -(-len(window_grid(VOLUME, WINDOW, WINDOW)) // PATCH_CHUNK)
+    host = 'infer_device_label = False'
+    npy = os.path.join(root, 'fpl_host.npy')
+    runs = (
+        ('host', 'run', host, 0, '', None, fwd),
+        ('fpl_host', 'run_passes', host + '\nfpl = True\n'
+         'fpl_uncertainty_sorted = ' + npy, 0, '', None, fwd),
+        ('ens', 'run_logits', '', 3, [train2, train4], None, 2 * fwd),
+        ('ens_aa', 'run_logits', '', 3, [train4, train4], None, 2 * fwd),
+        ('single', 'run', host, 2, train4, None, fwd),
+        ('crop', 'run', '', 0, '', '[NormalizeWithMeanStd, CenterCrop]',
+         crop_fwd),
+    )
+    results = {}
+    for tag, method, extra, mode, ckpt_name, chain, fwd_v in runs:
+        if ckpt_name:
+            extra += '\nckpt_name = ' + (
+                '[{0}]'.format(', '.join(ckpt_name))
+                if isinstance(ckpt_name, list) else ckpt_name)
+        cfg = write_cfg(root, tag, extra=extra, mode=mode,
+                        chain=chain or '[NormalizeWithMeanStd, Pad]')
+        ms = []
+        with timed_method(Inferer, method, ms), \
+                counting_forwards() as forwards:
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['test', cfg])
+            launches = dsbn_prelu.launches
+        check(rc == 0, '{0} stage rc {1}'.format(tag, rc))
+        check(forwards[0] == N_VOLUMES * fwd_v, '{0}: {1} forwards, expected '
+              '{2}'.format(tag, forwards[0], N_VOLUMES * fwd_v))
+        check(launches == 18 * forwards[0], '{0}: {1} launches for {2} '
+              'forwards'.format(tag, launches, forwards[0]))
+        labels = None
+        if tag != 'fpl_host':
+            labels = [load_image_as_nd_array(os.path.join(
+                root, 'out_' + tag, 'gen_target_test', os.path.basename(n)))[
+                'data_array'] for n in names]
+            for lab in labels:
+                check(lab.shape == (1,) + VOLUME, '{0} label shape {1}'.format(
+                    tag, lab.shape))
+        per_volume = sum(ms) / N_VOLUMES
+        results[tag] = {'launches': launches, 'forwards': forwards[0],
+                        'ms': per_volume, 'labels': labels}
+        print('test path {0}: {1} forwards, {2} kernel launches, Inferer.{3} '
+              '{4:.2f} ms per volume (CUDA events)'.format(
+                  tag, forwards[0], launches, method, per_volume))
+
+    agree = [float(np.mean(a == b)) for a, b in zip(
+        results['host']['labels'], serving['float32']['labels'])]
+    check(min(agree) >= BATCH_AGREE, 'host path labels agree with the '
+          'device-label path on {0}'.format(agree))
+    entries = np.load(npy, allow_pickle=True)
+    host_u = {str(e[1]): float(np.asarray(e[0]).reshape(-1)[0])
+              for e in entries}
+    dev_u = fpl['float32']['by_name']
+    rel = max(abs(host_u[n] - dev_u[n]) / abs(dev_u[n]) for n in dev_u)
+    check(sorted(host_u) == sorted(dev_u) and rel <= REDUCE_RTOL,
+          'FPL host fallback {0} vs device {1}'.format(host_u, dev_u))
+    same = [bool(np.array_equal(a, b)) for a, b in zip(
+        results['ens_aa']['labels'], results['single']['labels'])]
+    check(all(same), 'an ensemble of one checkpoint twice differs from it')
+    crop_lab = results['crop']['labels']
+    lo = [(v - c) // 2 for v, c in zip(VOLUME, CROP_VOLUME)]
+    outside = sum(int(lab[0, :, :lo[1]].sum() + lab[0, :, :, :lo[2]].sum())
+                  for lab in crop_lab)
+    check(outside == 0, 'CenterCrop inverse: {0} labels outside the '
+          'crop'.format(outside))
+    print('test paths: host-path labels agree with the device-label path on '
+          '{0}; FPL host fallback vs device uncertainties max rel err {1:.3g} '
+          '(tolerance {2}); ensemble [A, A] labels equal the single '
+          'checkpoint\'s: {3}; ensemble [train_2, train_4] foreground share '
+          '{4:.4f}'.format(agree, rel, REDUCE_RTOL, all(same), float(np.mean(
+              [lab.mean() for lab in results['ens']['labels']]))))
+    for r in results.values():
+        r.pop('labels')
+    results['host_agree'] = agree
+    results['fpl_host_rel_err'] = rel
+    return results
+
 
 
 def main():
@@ -1067,6 +1512,10 @@ def main():
                                 fwd_per_volume)
         tools_phase(ws, fpl)
         train = train_cli_phase(ws, names, fwd_per_volume)
+        evaluation = evaluation_phase(ws, train)
+        variants = variants_phase(ws, fwd_per_volume)
+        variant_check = variant_check_phase(dev)
+        paths = test_paths_phase(ws, names, serving, fpl)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -1114,6 +1563,10 @@ def main():
               .format(tag, float(np.median(steps)), wait,
                       wait / (float(np.median(steps)) / 1e3),
                       float(np.median(r['valid_ms']))))
+    for tag, r in variants.items():
+        print('variant {0} summary: step {1:.2f} ms (the second step), peak '
+              '{2:.2f} GiB, {3} updates'.format(tag, r['step_ms'][-1],
+                                                r['peak_gib'], r['updates']))
     print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
           '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
           'card vs CPU gradient max rel err {5:.3g}'.format(
@@ -1126,7 +1579,10 @@ def main():
         'launches': (sum(serving[p]['launches'] for p in serving)
                      + sum(fpl[p]['launches'] for p in fpl)
                      + sum(r['launches'] for r in batched)
-                     + sum(r['launches'] for r in train.values())),
+                     + sum(r['launches'] for r in train.values())
+                     + sum(r['launches'] for r in variants.values())
+                     + sum(r['launches'] for k, r in paths.items()
+                           if isinstance(r, dict))),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -1152,6 +1608,16 @@ def main():
         'batched_volume_ms': [r['ms'] for r in batched[:2]],
         'train_cli_launches': {t: r['launches'] for t, r in train.items()},
         'train_eval_forwards': {t: r['forwards'] for t, r in train.items()},
+        'variant_launches': {t: r['launches'] for t, r in variants.items()},
+        'variant_step_ms': {t: r['step_ms'] for t, r in variants.items()},
+        'variant_peak_gib': {t: r['peak_gib'] for t, r in variants.items()},
+        'variant_check': variant_check,
+        'test_path_launches': {t: r['launches'] for t, r in paths.items()
+                               if isinstance(r, dict)},
+        'test_path_ms_per_volume': {t: r['ms'] for t, r in paths.items()
+                                    if isinstance(r, dict)},
+        'eval_s_per_volume': evaluation['s_per_volume'],
+        'distance_s': evaluation['distance_s'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -16,11 +16,16 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   transforms/  sample-dict transform pipeline with recorded inverses (L2)
   models/      torch networks incl. DSBN variants (L3)
   losses/      Dice, weighted Dice, cross-entropy, combined (L4)
-  engine/      the joint DSBN train step, optimizers and schedules,
+  engine/      the DSBN train steps (joint with accumulation, alternating,
+               dual consistency, discriminator), optimizers and schedules,
                sliding-window inference, folded MC-dropout passes and the
                FPL reduction, checkpoints (L5/L6 compute)
   agents/      orchestration agents: the segmentation train and test
                stages (L5)
+  metrics/     dice / iou / assd / hd95 / rve / volume and the eva_main
+               reports (``python -m fpl_plus_torch.metrics``)
+  native/      the C++ raster-scan distance transform (ctypes, built at
+               first use)
   ops/         hand-written Hopper kernels with their plain versions
   fpl/         FPL+ weight and data tools (``python -m fpl_plus_torch.fpl``)
   utils/       weight bridge, label ops, post-processing, precision
@@ -28,12 +33,16 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
 
-Ported so far: on UNet2D5_dsbn / UNet2D5, the dual-domain training stage
-(joint Dice step, Adam, ``.pt`` checkpoints, resume, in-training
-validation), the test stages — pseudo labels (sliding window + flip TTA,
-batched serving, post-processing) and the FPL MC-dropout uncertainty pass —
-and the FPL weight tools. Evaluation and the other agents and networks are
-queued in ROADMAP.md.
+Ported so far: on UNet2D5_dsbn / UNet2D5, the training stage in all the
+segmentation agent's variants (joint with gradient accumulation,
+alternating with the entropy term, the discriminator, dual consistency;
+Adam, ``.pt`` checkpoints, resume, in-training validation), the test
+stages — pseudo labels (sliding window + flip TTA, batched serving,
+checkpoint ensembles, inverse transforms on the device or the host,
+post-processing) and the FPL MC-dropout uncertainty pass — the evaluation
+reports and the FPL weight tools. The other agents, networks, losses and
+transforms, the loader's worker pool and scale-out are queued in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-"""Segmentation agent: the FPL+ dual-domain training stage and the test
-stages (pseudo labels and the FPL uncertainty pass).
+"""Segmentation agent: the FPL+ training stage in all its variants and the
+test stages (pseudo labels, checkpoint ensembles and the FPL uncertainty
+pass).
 
 Parity with the reference SegmentationAgent
 (PyMIC/pymic/net_run_dsbn/agent_seg.py) and the JAX package's
@@ -7,9 +8,19 @@ Parity with the reference SegmentationAgent
 
 Training (``train_valid``, reference :689-831, JAX :417-803):
 
-* the joint step of ``engine/train.py`` per iteration (``[training] dual =
-  True``), Adam or another ``torch.optim`` optimizer, MultiStepLR or the
-  plateau controller, ``[training] precision`` f32 or bf16;
+* the step per iteration (``engine/train.py``), picked as the JAX
+  package's ``build_train_step`` picks it: ``dual_consistency = True`` the
+  dual-consistency step (gate ``it > consistency_start``, default 1000);
+  else ``dual = True`` the joint step, with ``grad_accum_steps``
+  microbatches per domain; else the alternating per-domain step with the
+  entropy term (``[training] entropy_reg``, default on there). ``dis =
+  True`` adds the discriminator step after the segmenter's; its network
+  starts from ``random_seed + 7`` and its state rides in every checkpoint.
+  Accumulation with ``dual = False``, ``dis`` or ``dual_consistency``
+  raises ``ValueError``, as there;
+* Adam or another ``torch.optim`` optimizer, MultiStepLR over iterations
+  (two updates per iteration for the alternating and dual-consistency
+  steps) or the plateau controller, ``[training] precision`` f32 or bf16;
 * the per-domain train streams are produced in a thread
   (``prefetch_iter``) while the card steps; the time the loop waits on
   them is logged and written as the ``host_wait`` scalar;
@@ -21,55 +32,59 @@ Training (``train_valid``, reference :689-831, JAX :417-803):
   (``engine/ckpt.py``), and the best pointer;
 * resume: ``iter_start > 0`` loads ``{prefix}_{iter_start}.pt``, with its
   optimizer state and schedule position when it has them, else a fresh
-  optimizer whose MultiStepLR is offset by ``iter_start``.
+  optimizer whose MultiStepLR is offset by ``iter_start``; the
+  discriminator's state when it has it, else a fresh discriminator.
 
-Dropout randomness in training: iteration ``it`` draws domain d's masks from
-a ``torch.Generator`` on the device seeded from
-``np.random.SeedSequence([random_seed, it, d])``, so the masks never equal
-the JAX package's.
+Dropout randomness in training: iteration ``it`` draws the masks of its
+forward k (per domain, per microbatch, or the dual-consistency step's
+three forwards) from a ``torch.Generator`` on the device seeded from
+``np.random.SeedSequence([random_seed, it, k...])``, so the masks never
+equal the JAX package's.
 
-Not ported (each raises ``NotImplementedError``): ``dual = False`` (the
-alternating step with the entropy term), ``grad_accum_steps > 1``, ``dis``
-and ``dual_consistency``.
-
-Inference (reference :834-1083, JAX :806-1063): load the checkpoint, run
+Inference (reference :834-1083, JAX :806-1117): load the checkpoint, run
 sliding-window + flip-TTA inference on the configured domain's DSBN bank,
 undo the test transforms and save label NIfTIs with the source geometry.
 
-* The save path is the device-label one: softmax is monotonic, so the
-  argmax of the logits runs on the device and a uint8 label map crosses
-  back; the test chain's inverse transforms compose into one crop of that
-  map (``_selection_margins``). ``post_process`` then runs on the host.
+* The device-label path: when every active inverse of the test chain is a
+  crop (``_selection_margins``), softmax is monotonic, so the argmax of the
+  logits runs on the device and a uint8 label map crosses back, cropped
+  there. ``post_process`` then runs on the host.
+* The host path, for an inverse that is not a crop (``CenterCrop``,
+  ``Rescale``, ...) or ``[testing] infer_device_label = False``: the logits
+  cross back, the inverse transforms run on the host and ``save_outputs``
+  takes softmax then argmax.
 * ``test_batch_size > 1``: the loader batch runs as one batched sliding
   window (``Inferer.run_batch``) when neither ``fpl`` nor
-  ``test_time_dropout`` is set.
+  ``test_time_dropout`` is set and the device-label path applies.
 * ``fpl = True``: per volume, 6 MC-dropout passes fold into one batched
-  inference and reduce on the device to ``(vars_sum, boundary)``; the
-  volume's uncertainty is ``1 if boundary < 50 else vars_sum / boundary``.
-  The stage writes no labels; it saves ``fpl_uncertainty_sorted``, the
-  ascending ``(uncertainty, name)`` pairs, for ``python -m
-  fpl_plus_torch.fpl image-weight``.
-* ``test_time_dropout = True``: one dropout pass on the label path.
+  inference, reduced on the device to ``(vars_sum, boundary)`` on the
+  device-label path, or on the host after the per-pass inverse transforms
+  (``fpl_host_reduce``); the volume's uncertainty is ``1 if boundary < 50
+  else vars_sum / boundary``. The stage writes no labels; it saves
+  ``fpl_uncertainty_sorted``, the ascending ``(uncertainty, name)`` pairs,
+  for ``python -m fpl_plus_torch.fpl image-weight``.
+* ``ckpt_mode = 3``: one forward per checkpoint of ``[testing]
+  ckpt_name``, the logits averaged, then the host inverse and the save.
+* ``test_time_dropout = True``: one dropout pass.
 
 Dropout randomness at test time: volume i of the stage draws its pass seeds
 from ``np.random.SeedSequence([random_seed, i])`` and gets one
 ``torch.Generator`` on the device per pass. The masks therefore differ from
 the JAX package's (threefry keys split from ``random_seed``), and on the
 card from the CPU's: the two agree in distribution, not in value.
-
-Not ported: an inverse transform that is not a crop (the JAX package's host
-path) raises ``NotImplementedError``, as do checkpoint ensembles
-(ckpt_mode 3).
 """
 from __future__ import annotations
 
+import copy
 import functools
 import logging
+import math
 import os
 import time
 from typing import Dict, List
 
 import numpy as np
+import scipy.special
 import torch
 
 from fpl_plus_torch.agents.agent_abstract import NetRunAgent
@@ -77,17 +92,22 @@ from fpl_plus_torch.engine import ckpt as ckpt_lib
 from fpl_plus_torch.engine.infer import Inferer
 from fpl_plus_torch.engine.optim import (PlateauScheduler, create_lr_schedule,
                                          create_optimizer, set_scheduled_lr)
-from fpl_plus_torch.engine.train import JointTrainStep, train_dice
+from fpl_plus_torch.engine.train import (AlternatingTrainStep,
+                                         DiscriminatorStep,
+                                         DualConsistencyStep, JointTrainStep,
+                                         train_dice)
 from fpl_plus_torch.io.image_io import save_nd_array_as_image
 from fpl_plus_torch.io.loader import prefetch_iter, repeat_loader
 from fpl_plus_torch.losses import create_loss_calculator
 from fpl_plus_torch.models.registry import create_network, param_count
+from fpl_plus_torch.models.unet2d5_dsbn import Dis
 from fpl_plus_torch.utils.image_process import convert_label
 from fpl_plus_torch.utils.post_process import PostProcessDict
 from fpl_plus_torch.utils.precision import cast_infer_module, resolve_dtype
 from fpl_plus_torch.utils.scalar_writer import ScalarWriter
 
 FPL_PASSES = 6
+DIS_LR, DIS_BETAS = 1e-4, (0.5, 0.999)
 
 
 def _split_batch(batch):
@@ -121,30 +141,53 @@ def _crop(label: np.ndarray, margins) -> np.ndarray:
         slice(a, s - b) for a, b, s in zip(lo, up, label.shape[1:]))]
 
 
-def refuse_unported_training(cfg_t: dict) -> None:
-    """Raise for the ``[training]`` settings whose step is not ported."""
-    if not cfg_t.get('dual', False):
-        raise NotImplementedError(
-            'dual = False (the alternating per-domain step with the entropy '
-            'term) is not yet ported; set [training] dual = True')
+def grad_accum_steps(cfg_t: dict) -> int:
+    """``[training] grad_accum_steps``, checked against the step it needs:
+    accumulation is the joint supervised path's (the JAX package raises
+    the same ``ValueError`` s, ``engine/train.py:141-145`` and
+    ``agents/agent_seg.py:274-279`` there)."""
     accum = int(cfg_t.get('grad_accum_steps', 1))
     if accum < 1:
         raise ValueError('[training] grad_accum_steps must be >= 1, got '
                          '{0}'.format(accum))
-    if accum > 1:
-        raise NotImplementedError('grad_accum_steps > 1 is not yet ported')
-    for key in ('dis', 'dual_consistency'):
-        if cfg_t.get(key, False):
-            raise NotImplementedError(
-                '[training] {0} = True is not yet ported'.format(key))
+    if accum > 1 and (cfg_t.get('dual_consistency', False)
+                      or cfg_t.get('dis', False)):
+        raise ValueError('grad_accum_steps > 1 is only supported on the '
+                         'plain joint supervised path (not dual_consistency '
+                         '/ dis)')
+    if accum > 1 and not cfg_t.get('dual', False):
+        raise ValueError('grad_accum_steps > 1 requires the joint (dual = '
+                         'True) training path; the alternating per-domain '
+                         'step updates per domain and has no accumulation')
+    return accum
+
+
+def fpl_host_reduce(maps: np.ndarray):
+    """The FPL image-level uncertainty of per-pass probability maps ``[P,
+    K, *img]`` on the host (reference agent_seg.py:921-929; the JAX
+    package's host fallback, ``agents/agent_seg.py:1004-1013``): the
+    variance over passes summed over classes and voxels, and the count of
+    voxels whose mean-probability entropy term exceeds 0.01 (K == 2: the
+    class-1 term only; K > 2: the full entropy). Returns ``(vars_sum,
+    boundary)``."""
+    vars_ = maps.var(axis=0).sum()
+    if maps.shape[1] == 2:
+        means = np.mean(maps[:, 1], axis=0)
+        uncertainty = -1.0 * (means * np.log(means + 1e-6))
+    else:
+        means = np.mean(maps, axis=0)
+        uncertainty = -np.sum(means * np.log(means + 1e-6), axis=0)
+    return float(vars_), int(np.where(uncertainty > 0.01, 1, 0).sum())
 
 
 def _host_batch(data: dict, fpl_uda: bool,
                 pin: bool) -> Dict[str, torch.Tensor]:
     """Loader batch -> the step's CPU tensors (pinned for an asynchronous
-    copy to the card): image, label_prob and, with ``fpl_uda``, the
-    weights."""
+    copy to the card): image, label_prob, image1 when the manifest has it
+    and, with ``fpl_uda``, the weights."""
     keys = ['image', 'label_prob']
+    if data.get('image1', None) is not None:
+        keys.append('image1')
     if fpl_uda and data.get('pixel_weight', None) is not None:
         keys.append('pixel_weight')
         if data.get('image_weight', None) is not None:
@@ -152,6 +195,43 @@ def _host_batch(data: dict, fpl_uda: bool,
     out = {k: torch.from_numpy(np.ascontiguousarray(data[k], np.float32))
            for k in keys}
     return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
+def _check_micro_keys(micros) -> None:
+    """Every microbatch of an accumulated iteration has the same keys: a
+    manifest whose rows differ in optional columns would otherwise drop a
+    weighting term or fail mid-run."""
+    keys = set(micros[0])
+    for i, m in enumerate(micros[1:], 1):
+        if set(m) != keys:
+            raise ValueError(
+                'grad-accum microbatch {0} has keys {1} but microbatch 0 '
+                'has {2}: all accum microbatches must share one key set '
+                '(check that every manifest row carries the same optional '
+                'columns)'.format(i, sorted(m), sorted(keys)))
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, non_blocking=True)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return type(tree)(_to_device(v, device) for v in tree)
+
+
+def init_dis(dis: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """torch's default convolution initialisation (kaiming-uniform weights
+    with a = sqrt(5), uniform biases within 1/sqrt(fan_in)) drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in dis.modules():
+            if isinstance(m, torch.nn.Conv3d):
+                torch.nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                               generator=gen)
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.bias.uniform_(-bound, bound, generator=gen)
+    return dis
 
 
 class SegmentationAgent(NetRunAgent):
@@ -165,8 +245,9 @@ class SegmentationAgent(NetRunAgent):
         self.train_dtype = resolve_dtype(train_cfg.get('precision',
                                                        'float32'))
         self.infer_precision = config['testing'].get('precision', 'float32')
+        self.dis = self.dis_optimizer = None
         if self.stage == 'train':
-            refuse_unported_training(train_cfg)
+            self.accum = grad_accum_steps(train_cfg)
 
     def create_network(self):
         if self.module is None:
@@ -174,27 +255,105 @@ class SegmentationAgent(NetRunAgent):
         logging.info('parameter number %d', param_count(self.module))
 
     # -- training -----------------------------------------------------------
-    def _dropout_generators(self, iteration: int):
-        """Per-domain dropout generators of ``iteration`` (None when the
-        network has no dropout)."""
+    def _train_generators(self, iteration: int, tails):
+        """One list with one dropout generator per forward of ``iteration``
+        (None when the network has no dropout), forward k seeded from
+        ``SeedSequence([random_seed, iteration, *tails[k]])``."""
         if not any(self.config['network'].get('dropout', [])):
-            return [None] * self.num_domains
+            return [None] * len(tails)
         return [[torch.Generator(self.device).manual_seed(int(
-            np.random.SeedSequence([int(self.random_seed), iteration, d])
-            .generate_state(1)[0]))] for d in range(self.num_domains)]
+            np.random.SeedSequence([int(self.random_seed), iteration, *t])
+            .generate_state(1)[0]))] for t in tails]
+
+    def _step_generators(self, iteration: int):
+        cfg_t = self.config['training']
+        if cfg_t.get('dual_consistency', False):
+            return self._train_generators(iteration, [(0,), (1,), (2,)])
+        if self.accum > 1:
+            return [self._train_generators(iteration, [
+                (d, m) for m in range(self.accum)])
+                for d in range(self.num_domains)]
+        return self._train_generators(
+            iteration, [(d,) for d in range(self.num_domains)])
 
     def _train_batches(self):
-        """Endless tuples of per-domain host batches."""
+        """Endless tuples of per-domain host batches (with accumulation:
+        of per-domain lists of ``accum`` microbatches)."""
         pin = self.device.type == 'cuda'
         streams = [repeat_loader(ld) for ld in self.train_loaders]
         while True:
-            yield tuple(_host_batch(next(s), self.fpl_uda, pin)
-                        for s in streams)
+            if self.accum == 1:
+                yield tuple(_host_batch(next(s), self.fpl_uda, pin)
+                            for s in streams)
+                continue
+            out = []
+            for s in streams:
+                micros = [_host_batch(next(s), self.fpl_uda, pin)
+                          for _ in range(self.accum)]
+                _check_micro_keys(micros)
+                out.append(micros)
+            yield tuple(out)
+
+    def _build_step(self, optimizer, schedule):
+        """The segmenter's step, picked as the JAX package's
+        ``build_train_step`` picks it."""
+        cfg_t = self.config['training']
+        loss = create_loss_calculator(self.config)
+        common = dict(fpl_uda=self.fpl_uda, compute_dtype=self.train_dtype)
+        if cfg_t.get('dual_consistency', False):
+            return DualConsistencyStep(self.module, loss, optimizer, schedule,
+                                       entropy_coeff=1.0, **common)
+        if cfg_t.get('dual', False):
+            return JointTrainStep(self.module, loss, optimizer, schedule,
+                                  self.num_domains, accum_steps=self.accum,
+                                  **common)
+        # the reference's per-domain training() adds the entropy term
+        # (agent_seg.py:352-354): on by default, [training] entropy_reg
+        # overrides
+        entropy = cfg_t.get('entropy_reg', True)
+        return AlternatingTrainStep(self.module, loss, optimizer, schedule,
+                                    self.num_domains,
+                                    entropy_coeff=1.0 if entropy else 0.0,
+                                    **common)
+
+    def updates_per_iteration(self) -> int:
+        """Optimizer updates per iteration: one per domain for the
+        alternating step, two for the dual-consistency step, else one."""
+        cfg_t = self.config['training']
+        if cfg_t.get('dual_consistency', False):
+            return 2
+        if not cfg_t.get('dual', False) and self.num_domains > 1:
+            return self.num_domains
+        return 1
+
+    def training_hyper(self, iteration: int) -> Dict[str, float]:
+        """Per-iteration values fed to the step (the consistency gate)."""
+        cfg_t = self.config['training']
+        if cfg_t.get('dual_consistency', False):
+            start = cfg_t.get('consistency_start', 1000)
+            return {'consis_gate': float(iteration > start)}
+        return {}
+
+    def _create_dis(self):
+        """The discriminator of ``dis = True`` and its Adam, fresh."""
+        self.dis = init_dis(Dis(self.config['network']['class_num']),
+                            int(self.random_seed) + 7).to(self.device)
+        self.dis_optimizer = torch.optim.Adam(self.dis.parameters(),
+                                              lr=DIS_LR, betas=DIS_BETAS)
+
+    def _ckpt_state(self, model_state, optimizer):
+        state = {'model_state_dict': model_state,
+                 'optimizer_state_dict': optimizer.state_dict()}
+        if self.dis is not None:
+            state['dis_state_dict'] = self.dis.state_dict()
+            state['dis_optimizer_state_dict'] = \
+                self.dis_optimizer.state_dict()
+        return state
 
     def _resume(self, module, ckpt_dir, prefix, iter_start, sched_params):
-        """Load ``{prefix}_{iter_start}.pt`` into ``module``; returns its
-        optimizer state (None: the schedule is offset instead) and the
-        loaded weights."""
+        """Load ``{prefix}_{iter_start}.pt`` into ``module`` (and the
+        discriminator when it has one); returns its optimizer state (None:
+        the schedule is offset instead) and the loaded weights."""
         path = ckpt_lib.checkpoint_path(ckpt_dir, prefix, iter_start)
         loaded = ckpt_lib.load_checkpoint(path)
         module.load_state_dict(loaded['model_state_dict'], strict=True)
@@ -205,6 +364,15 @@ class SegmentationAgent(NetRunAgent):
             sched_params['last_iter'] = iter_start - 1
             logging.info('checkpoint has no optimizer state; fresh '
                          'optimizer with schedule offset %d', iter_start)
+        if self.dis is not None:
+            if 'dis_state_dict' in loaded:
+                self.dis.load_state_dict(loaded['dis_state_dict'])
+                self.dis_optimizer.load_state_dict(
+                    loaded['dis_optimizer_state_dict'])
+                logging.info('restored the discriminator from %s', path)
+            else:
+                logging.info('checkpoint has no discriminator state; fresh '
+                             'discriminator kept')
         logging.info('resumed from %s', path)
         return opt_state, loaded['model_state_dict']
 
@@ -225,6 +393,8 @@ class SegmentationAgent(NetRunAgent):
             iter_save_list = list(range(0, iter_max + 1, iter_save))
 
         module = self.module.to(self.device)
+        if cfg_t.get('dis', False):
+            self._create_dis()
         sched_params = dict(cfg_t)
         sched_params['last_iter'] = -1
         # the dsbn reference zeroes the restored valid_pred on resume
@@ -242,11 +412,12 @@ class SegmentationAgent(NetRunAgent):
             first = next(iter(optimizer.state.values()), {})
             optimizer.param_groups[0].setdefault(
                 'update_count', int(first.get('step', 0)))
-        schedule = create_lr_schedule(sched_params)
+        schedule = create_lr_schedule(sched_params,
+                                      self.updates_per_iteration())
         set_scheduled_lr(optimizer, schedule)
-        step = JointTrainStep(module, create_loss_calculator(self.config),
-                              optimizer, schedule, self.num_domains,
-                              self.fpl_uda, self.train_dtype)
+        step = self._build_step(optimizer, schedule)
+        dis_step = (DiscriminatorStep(module, self.dis, self.dis_optimizer)
+                    if self.dis is not None else None)
         plateau = PlateauScheduler(sched_params)
         class_num = self.config['network']['class_num']
         writer = ScalarWriter(ckpt_dir)
@@ -259,19 +430,22 @@ class SegmentationAgent(NetRunAgent):
                 lr_value = optimizer.param_groups[0]['lr']
                 t0 = time.time()
                 wait = 0.0
-                acc: Dict[str, List[torch.Tensor]] = {}
+                acc: Dict[str, List] = {}
                 for sub_it in range(iter_valid):
+                    it = block_start + sub_it
                     tw = time.time()
                     host = next(batches)
                     wait += time.time() - tw
-                    dev = [{k: v.to(self.device, non_blocking=True)
-                            for k, v in b.items()} for b in host]
-                    metrics = step(dev, self._dropout_generators(
-                        block_start + sub_it))
-                    for k, v in metrics.items():
+                    dev = _to_device(host, self.device)
+                    hyper = self.training_hyper(it)
+                    metrics = step(dev, self._step_generators(it), **hyper)
+                    if dis_step is not None:
+                        metrics.update(dis_step(dev))
+                    for k, v in list(metrics.items()) + list(hyper.items()):
                         acc.setdefault(k, []).append(v)
-                train_scalars = {'loss': float(torch.stack(acc['loss'])
-                                               .mean())}
+                train_scalars = {
+                    k: float(np.mean([float(x) for x in v]))
+                    for k, v in acc.items() if not k.startswith('class_dice')}
                 cls_dice = np.mean([torch.stack(v).mean(0).cpu().numpy()
                                     for k, v in acc.items()
                                     if k.startswith('class_dice')], axis=0)
@@ -305,26 +479,25 @@ class SegmentationAgent(NetRunAgent):
                 stop_now = (early_stop_it is not None
                             and glob_it - max_val_it > early_stop_it)
                 if glob_it in iter_save_list or stop_now:
-                    ckpt_writer.submit(ckpt_dir, prefix, glob_it, {
-                        'model_state_dict': module.state_dict(),
-                        'optimizer_state_dict': optimizer.state_dict()},
-                        valid_scalars['avg_dice'])
+                    ckpt_writer.submit(ckpt_dir, prefix, glob_it,
+                                       self._ckpt_state(module.state_dict(),
+                                                        optimizer),
+                                       valid_scalars['avg_dice'])
                 if stop_now:
                     logging.info('The training is early stopped')
                     break
             # a final checkpoint and latest pointer also when iter_valid
             # does not divide the run (the reference then saves none)
             if glob_it > iter_start and glob_it not in iter_save_list:
-                ckpt_writer.submit(ckpt_dir, prefix, glob_it, {
-                    'model_state_dict': module.state_dict(),
-                    'optimizer_state_dict': optimizer.state_dict()},
-                    max_val_dice)
+                ckpt_writer.submit(ckpt_dir, prefix, glob_it,
+                                   self._ckpt_state(module.state_dict(),
+                                                    optimizer),
+                                   max_val_dice)
             # the best-performing checkpoint (reference :809-828)
             if best_state is not None:
-                ckpt_writer.submit(ckpt_dir, prefix, max_val_it, {
-                    'model_state_dict': best_state,
-                    'optimizer_state_dict': optimizer.state_dict()},
-                    max_val_dice, update_latest=False)
+                ckpt_writer.submit(ckpt_dir, prefix, max_val_it,
+                                   self._ckpt_state(best_state, optimizer),
+                                   max_val_dice, update_latest=False)
             ckpt_writer.close()   # artifacts durable before the pointer
         finally:
             batches.close()       # stops the producer thread
@@ -346,13 +519,18 @@ class SegmentationAgent(NetRunAgent):
                                     'valid': valid_scalars['avg_dice']},
                            glob_it)
         writer.add_scalar('lr', lr_value, glob_it)
+        # the variants' own terms (loss_dis, loss_consis, consis_gate)
+        extra = {k: v for k, v in train_scalars.items()
+                 if k not in ('loss', 'avg_dice', 'class_dice')}
+        for key, value in extra.items():
+            writer.add_scalars(key, {'train': value}, glob_it)
         for c in range(class_num):
             writer.add_scalars('class_{0}_dice'.format(c), {
                 'train': float(train_scalars['class_dice'][c]),
                 'valid': float(valid_scalars['class_dice'][c])}, glob_it)
-        logging.info('train loss %.4f, avg foreground dice %.4f %s',
+        logging.info('train loss %.4f, avg foreground dice %.4f %s %s',
                      train_scalars['loss'], train_scalars['avg_dice'],
-                     train_scalars['class_dice'])
+                     train_scalars['class_dice'], extra or '')
         logging.info('valid loss %.4f, avg foreground dice %.4f %s',
                      valid_scalars['loss'], valid_scalars['avg_dice'],
                      valid_scalars['class_dice'])
@@ -439,12 +617,31 @@ class SegmentationAgent(NetRunAgent):
         return [torch.Generator(self.device).manual_seed(int(s))
                 for s in seeds]
 
-    def _margins_or_raise(self, data, dim):
-        margins = self._selection_margins(data, dim)
-        if margins is None:
-            raise NotImplementedError(
-                'an inverse transform that is not a crop is not yet ported')
-        return margins
+    def _host_inverse(self, data: Dict) -> Dict:
+        """Undo the test chain on ``data['predict']`` (logits ``[N, K,
+        *img]``) on the host, last transform first."""
+        for transform in self.transform_list[::-1]:
+            if transform.inverse:
+                data = transform.inverse_transform_for_prediction(data)
+        return data
+
+    def _loaded_module(self, ckpt_name: str):
+        """A copy of the network with the checkpoint's weights, on the
+        device, in eval mode, cast per ``[testing] precision``."""
+        loaded = ckpt_lib.load_checkpoint(ckpt_name)
+        module = copy.deepcopy(self.module)
+        module.load_state_dict(loaded['model_state_dict'], strict=True)
+        logging.info('loaded checkpoint %s (iteration %d)', ckpt_name,
+                     int(loaded['iteration']))
+        return cast_infer_module(module.to(self.device).eval(),
+                                 self.infer_precision)
+
+    def _inferers(self):
+        """The label-head Inferer of the device-label path and the logits
+        Inferer of the host path."""
+        cfg_test = self.config['testing']
+        return (Inferer(dict(cfg_test, output_mode='label'), self.device),
+                Inferer(dict(cfg_test, output_mode='logits'), self.device))
 
     # -- inference ------------------------------------------------------------
     def infer(self):
@@ -452,64 +649,76 @@ class SegmentationAgent(NetRunAgent):
         domain_label = cfg_test.get('domian_label', 0)   # (sic) reference key
         fpl = cfg_test.get('fpl', False)
         tt_dropout = cfg_test.get('test_time_dropout', False) or fpl
+        device_label = cfg_test.get('infer_device_label', True)
 
         ckpt_name = ckpt_lib.get_checkpoint_name(self.config)
-        loaded = ckpt_lib.load_checkpoint(ckpt_name)
-        self.module.load_state_dict(loaded['model_state_dict'], strict=True)
-        module = cast_infer_module(self.module.to(self.device).eval(),
-                                   self.infer_precision)
-        logging.info('loaded checkpoint %s (iteration %d)', ckpt_name,
-                     int(loaded['iteration']))
         postpro_name = cfg_test.get('post_process', None)
         if self.postprocessor is None and postpro_name is not None:
             self.postprocessor = PostProcessDict[postpro_name](cfg_test)
-
-        # the label head serves the label paths; the FPL pass reduces the
-        # logits before any head
-        inferer = Inferer(dict(cfg_test, output_mode='label'), self.device)
+        if cfg_test['ckpt_mode'] == 3:
+            return self.infer_with_multiple_checkpoints(ckpt_name,
+                                                        domain_label)
+        module = self._loaded_module(ckpt_name)
+        label_inf, logits_inf = self._inferers()
         predictor = functools.partial(module, domain_label=domain_label)
+
+        def margins_of(data, dim):
+            return self._selection_margins(data, dim) if device_label \
+                else None
+
         infer_times, uncertainty = [], {}
         volume_index = 0
         for batch_data in prefetch_iter(self.test_loader):
             samples = list(_split_batch(batch_data))
             if len(samples) > 1 and not tt_dropout:
                 # batched serving: a collated batch is same-shape, so its
-                # volumes share one sliding window
+                # volumes share one sliding window on the device-label path
                 images = np.asarray(batch_data['image'], np.float32)
-                margins = [self._margins_or_raise(d, images.ndim - 2)
-                           for d in samples]
-                t0 = time.time()
-                labels = inferer.run_batch(predictor, images)
-                dt = (time.time() - t0) / len(samples)
-                for i, (data, m) in enumerate(zip(samples, margins)):
-                    data['predict_label'] = _crop(labels[i:i + 1], m)
-                    self.save_outputs(data)
-                infer_times.extend([dt] * len(samples))
-                volume_index += len(samples)
-                continue
+                margins = [margins_of(d, images.ndim - 2) for d in samples]
+                if all(m is not None for m in margins):
+                    t0 = time.time()
+                    labels = label_inf.run_batch(predictor, images)
+                    dt = (time.time() - t0) / len(samples)
+                    for i, (data, m) in enumerate(zip(samples, margins)):
+                        data['predict_label'] = _crop(labels[i:i + 1], m)
+                        self.save_outputs(data)
+                    infer_times.extend([dt] * len(samples))
+                    volume_index += len(samples)
+                    continue
             for data in samples:
                 images = np.asarray(data['image'], np.float32)
-                margins = self._margins_or_raise(data, images.ndim - 2)
+                margins = margins_of(data, images.ndim - 2)
                 t0 = time.time()
+                pred = predictor
+                if tt_dropout:
+                    pred = functools.partial(
+                        predictor, dropout_generators=self._generators(
+                            volume_index, FPL_PASSES if fpl else 1))
                 if fpl:
-                    vars_, boundary = inferer.run_fpl_uncertainty(
-                        functools.partial(
-                            predictor, dropout_generators=self._generators(
-                                volume_index, FPL_PASSES)),
-                        images, FPL_PASSES, margins)
+                    if margins is not None:
+                        vars_, boundary = label_inf.run_fpl_uncertainty(
+                            pred, images, FPL_PASSES, margins)
+                    else:
+                        # host fallback: per-pass logits, inverse and
+                        # softmax on the host
+                        passes = logits_inf.run_passes(pred, images,
+                                                       FPL_PASSES)
+                        maps = np.concatenate([scipy.special.softmax(
+                            self._host_inverse(dict(
+                                data, predict=passes[i:i + 1]))['predict'],
+                            axis=1) for i in range(FPL_PASSES)])
+                        vars_, boundary = fpl_host_reduce(maps)
                     uncer_one = 1 if boundary < 50 else vars_ / boundary
                     name = _name_of(data)
                     uncertainty[name] = [uncer_one]
                     logging.info('%s %s', name, uncer_one)
-                else:
-                    pred = predictor
-                    if tt_dropout:
-                        pred = functools.partial(
-                            predictor, dropout_generators=self._generators(
-                                volume_index, 1))
-                    data['predict_label'] = _crop(
-                        inferer.run(pred, images), margins)
+                elif margins is not None:
+                    data['predict_label'] = _crop(label_inf.run(pred, images),
+                                                  margins)
                     self.save_outputs(data)
+                else:
+                    data['predict'] = logits_inf.run(pred, images)
+                    self.save_outputs(self._host_inverse(data))
                 infer_times.append(time.time() - t0)
                 volume_index += 1
         if fpl:
@@ -522,9 +731,33 @@ class SegmentationAgent(NetRunAgent):
             arr = np.asarray(infer_times)
             logging.info('testing time %s +/- %s', arr.mean(), arr.std())
 
+    def infer_with_multiple_checkpoints(self, ckpt_names: List[str],
+                                        domain_label: int):
+        """``ckpt_mode = 3`` (reference :966-1020): per volume, one forward
+        per checkpoint, the logits averaged over the checkpoints, then the
+        host inverse and the save."""
+        modules = [self._loaded_module(name) for name in ckpt_names]
+        _, logits_inf = self._inferers()
+        infer_times = []
+        for batch_data in prefetch_iter(self.test_loader):
+            for data in _split_batch(batch_data):
+                images = np.asarray(data['image'], np.float32)
+                t0 = time.time()
+                with torch.inference_mode():
+                    logits = torch.stack([logits_inf.run_logits(
+                        functools.partial(m, domain_label=domain_label),
+                        images) for m in modules]).mean(0)
+                data['predict'] = logits.cpu().numpy()
+                self.save_outputs(self._host_inverse(data))
+                infer_times.append(time.time() - t0)
+        if infer_times:
+            arr = np.asarray(infer_times)
+            logging.info('testing time %s +/- %s', arr.mean(), arr.std())
+
     def save_outputs(self, data: Dict):
-        """Label convert -> post-process -> save NIfTI with metadata from
-        the source image (reference :1022-1083), into
+        """Labels (``predict_label``, or softmax then argmax of the logits
+        ``predict``) -> label convert -> post-process -> save NIfTI with
+        metadata from the source image (reference :1022-1083), into
         ``output_dir/(ckpt_dir + '_' + test_csv_stem)``."""
         cfg_test = self.config['testing']
         output_dir = cfg_test['output_dir']
@@ -539,7 +772,11 @@ class SegmentationAgent(NetRunAgent):
         os.makedirs(output_dir, exist_ok=True)
 
         names = data['names']
-        output = np.asarray(data['predict_label'], np.uint8)
+        if 'predict_label' in data:
+            output = np.asarray(data['predict_label'], np.uint8)
+        else:
+            prob = scipy.special.softmax(np.asarray(data['predict']), axis=1)
+            output = np.asarray(np.argmax(prob, axis=1), np.uint8)
         if label_source is not None and label_target is not None:
             output = convert_label(output, label_source, label_target)
         if self.postprocessor is not None:

@@ -4,12 +4,15 @@
 mirrors the FPL+ runner (PyMIC/pymic/net_run_dsbn/net_run.py:11-43): parse
 and synchronize the config, set up file+stdout logging in
 ``ckpt_save_dir`` and run the stage agent; after ``train`` the test stage
-runs, reading the checkpoint the training wrote through its pointer file.
-It runs on the card (``cuda:0``) unless ``--device`` (or ``main(...,
-device=...)``) names another device; without a card and without
-``--device cpu`` it raises. A config with an ``[evaluation]`` section is
-refused at start-up: the evaluation after the test stage (``eva_main``) is
-not yet ported.
+runs, reading the checkpoint the training wrote through its pointer file,
+and then, when the config has an ``[evaluation]`` section, ``eva_main``
+(on the host). It runs on the card (``cuda:0``) unless ``--device`` (or
+``main(..., device=...)``) names another device; without a card and
+without ``--device cpu`` it raises.
+
+``main_eval_seg`` (``python -m fpl_plus_torch.metrics cfg``) runs the
+evaluation reports alone (the reference's ``pymic_eval_seg``); it needs no
+device.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from fpl_plus_torch.agents.agent_seg import SegmentationAgent
 from fpl_plus_torch.config.parser import (logging_config, parse_config,
                                           synchronize_config)
 from fpl_plus_torch.device import resolve_device
+from fpl_plus_torch.metrics.evaluate import eva_main
 from fpl_plus_torch.utils.precision import apply_matmul_precision
 
 
@@ -53,10 +57,6 @@ def main(argv=None, device=None):
     if task != 'seg':
         raise NotImplementedError('task_type {0} is not yet ported'.format(
             task))
-    if args.stage == 'train' and 'evaluation' in config:
-        raise NotImplementedError(
-            'the [evaluation] stage after training (eva_main) is not yet '
-            'ported; remove the section')
     apply_matmul_precision(config, args.stage)
     log_dir = config['training']['ckpt_save_dir']
     os.makedirs(log_dir, exist_ok=True)
@@ -67,6 +67,22 @@ def main(argv=None, device=None):
     if args.stage == 'train':
         # the auto test stage (reference net_run_dsbn/net_run.py:37-40)
         SegmentationAgent(config, 'test', dev).run()
+        if 'evaluation' in config:
+            eva_main(config)
+    return 0
+
+
+def main_eval_seg(argv=None):
+    """The evaluation reports of ``cfg`` (``eva_main``), host only."""
+    argv = argv if argv is not None else sys.argv[1:]
+    parser = argparse.ArgumentParser(prog='python -m fpl_plus_torch.metrics')
+    parser.add_argument('cfg')
+    args = parser.parse_args(argv)
+    if not os.path.isfile(args.cfg):
+        raise ValueError('The config file does not exist: {0}'.format(
+            args.cfg))
+    logging.basicConfig(level=logging.INFO)
+    eva_main(parse_config(args.cfg))
     return 0
 
 

@@ -6,8 +6,8 @@ and agent_seg.py:767-828): a checkpoint is ``{ckpt_dir}/{prefix}_{it}.pt``,
 a ``torch.save`` of ``{'iteration', 'valid_pred', 'model_state_dict',
 'optimizer_state_dict'}``; the sidecar text files ``{prefix}_latest.txt`` /
 ``{prefix}_best.txt`` hold the iteration number. ``ckpt_mode`` 0 = latest,
-1 = best, 2 = the explicit ``ckpt_name``; mode 3 (an ensemble list) is not
-yet ported.
+1 = best, 2 = the explicit ``ckpt_name``, 3 = the list ``ckpt_name`` of an
+ensemble (the test stage averages its members' logits).
 
 Durability and overlap, as in the JAX package's ``engine/ckpt.py`` (the
 reference's ``torch.save`` is synchronous and not atomic):
@@ -28,7 +28,7 @@ import io
 import os
 import queue
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -45,8 +45,9 @@ def checkpoint_path(ckpt_dir: str, prefix: str, iteration: int) -> str:
     return '{0}/{1}_{2}.pt'.format(ckpt_dir, prefix, iteration)
 
 
-def get_checkpoint_name(config: dict) -> str:
-    """Resolve the inference checkpoint exactly like the reference."""
+def get_checkpoint_name(config: dict) -> Union[str, List[str]]:
+    """Resolve the inference checkpoint exactly like the reference: a path,
+    or for ``ckpt_mode`` 3 a list of paths."""
     ckpt_mode = config['testing']['ckpt_mode']
     if ckpt_mode in (0, 1):
         ckpt_dir = config['training']['ckpt_save_dir']
@@ -56,11 +57,13 @@ def get_checkpoint_name(config: dict) -> str:
         with open(txt) as f:
             it_num = f.read().replace('\n', '')
         return checkpoint_path(ckpt_dir, prefix, it_num)
-    if ckpt_mode == 2:
-        return config['testing']['ckpt_name']
-    if ckpt_mode == 3:
-        raise NotImplementedError(
-            'ckpt_mode 3 (checkpoint ensembles) is not yet ported')
+    if ckpt_mode in (2, 3):
+        name = config['testing']['ckpt_name']
+        if (ckpt_mode == 3) != isinstance(name, (list, tuple)):
+            raise ValueError('ckpt_mode should be 3 if and only if ckpt_name '
+                             'is a list, got ckpt_mode {0} and {1!r}'.format(
+                                 ckpt_mode, name))
+        return list(name) if ckpt_mode == 3 else name
     raise ValueError('Undefined ckpt_mode {0}'.format(ckpt_mode))
 
 

@@ -12,10 +12,14 @@ and the JAX package's ``engine/optim.py``:
   reference's (the JAX package's optax choices differ for Adagrad's initial
   accumulator and RMSprop's decay). LBFGS needs a closure the step loop does
   not give, so it raises.
-* schedules: MultiStepLR over optimizer updates (milestones x gamma, with
-  the resume offset of a fresh optimizer, ``last_iter``), and the host-side
-  ``PlateauScheduler`` (ReduceLROnPlateau in max mode on validation dice),
-  copied from the JAX package.
+* schedules: MultiStepLR over training iterations (milestones x gamma,
+  with the resume offset of a fresh optimizer, ``last_iter``), and the
+  host-side ``PlateauScheduler`` (ReduceLROnPlateau in max mode on
+  validation dice), copied from the JAX package. The steps that update the
+  parameters twice per iteration (the alternating and dual-consistency
+  steps) read the schedule at ``update_count // updates_per_iteration``,
+  as the JAX package does (``engine/optim.py:146-156`` there); Adam's own
+  ``step`` counts updates.
 
 The update count the schedule reads rides in the optimizer's first param
 group (``update_count``), so ``optimizer.state_dict()`` saves it and a
@@ -62,13 +66,14 @@ def create_optimizer(optim_cfg: dict, params) -> torch.optim.Optimizer:
     return opt
 
 
-def create_lr_schedule(sched_params: dict) -> Optional[Callable[[int], float]]:
+def create_lr_schedule(sched_params: dict, updates_per_iteration: int = 1
+                       ) -> Optional[Callable[[int], float]]:
     """MultiStepLR as ``lr(update_count)``; None for ReduceLROnPlateau
-    (``PlateauScheduler``) or when no scheduler is set. The rate of update
-    k (0-based) is scaled by ``lr_gamma`` once per milestone
-    ``m <= k + offset``; ``offset`` is ``last_iter + 1`` for a positive
-    ``last_iter`` (a fresh optimizer resumed at iteration ``last_iter + 1``),
-    else 0."""
+    (``PlateauScheduler``) or when no scheduler is set. Update k (0-based)
+    belongs to iteration ``i = k // updates_per_iteration``, whose rate is
+    scaled by ``lr_gamma`` once per milestone ``m <= i + offset``;
+    ``offset`` is ``last_iter + 1`` for a positive ``last_iter`` (a fresh
+    optimizer resumed at iteration ``last_iter + 1``), else 0."""
     name = sched_params.get('lr_scheduler', None)
     if name is None or _keyword_match(name, 'ReduceLROnPlateau'):
         return None
@@ -84,7 +89,8 @@ def create_lr_schedule(sched_params: dict) -> Optional[Callable[[int], float]]:
     offset = last_iter + 1 if last_iter > 0 else 0
 
     def schedule(count: int) -> float:
-        return lr * gamma ** sum(count + offset >= m for m in milestones)
+        it = count // updates_per_iteration + offset
+        return lr * gamma ** sum(it >= m for m in milestones)
 
     return schedule
 

@@ -1,18 +1,42 @@
-"""The dual-domain joint training step (DSBN).
+"""The DSBN training steps: joint (with gradient accumulation), alternating,
+dual-consistency, and the discriminator step.
 
-Replicates the JAX package's ``make_train_step`` joint path
-(``engine/train.py:180-241`` there) and the reference ``training_all``
-(PyMIC/pymic/net_run_dsbn/agent_seg.py:415-508): per iteration, forward
-domain 0 then domain 1 (each in train mode, so each updates only its own
-DSBN bank), the per-domain loss with ``pixel_weight`` / ``image_weight``
-when ``train_fpl_uda``, the joint loss ``mean_d loss_d``, one backward and
-one optimizer step; train-time metrics are the classwise dice of the one-hot
-argmax per domain (``class_dice_{d}``).
+Replicates the JAX package's ``engine/train.py`` (``make_train_step`` and
+``make_dual_consistency_step``) and its agent's discriminator step
+(``agents/agent_seg.py:308-353`` there), which follow the reference
+(PyMIC/pymic/net_run_dsbn/agent_seg.py):
+
+* ``JointTrainStep`` (``dual = True``, reference ``training_all``): forward
+  domain 0 then domain 1 (each in train mode, so each updates only its own
+  DSBN bank), the per-domain loss with ``pixel_weight`` / ``image_weight``
+  when ``train_fpl_uda``, the joint loss ``mean_d loss_d``, one backward
+  and one optimizer step. With ``accum_steps > 1`` every microbatch
+  differentiates the same parameters, the DSBN running statistics thread
+  through the microbatches in order, the gradient, loss and dice are the
+  means over the microbatches, and the optimizer updates once.
+* ``AlternatingTrainStep`` (``dual = False``): per domain, forward, the
+  loss plus ``entropy_coeff x entropy_log2``, backward and one optimizer
+  step, so domain 1 sees the parameters after domain 0's update.
+* ``DualConsistencyStep``: a domain-0 update on ``(x0, y0)`` plus the
+  fake-source translation ``(image1, y1)`` through bank 0, then a domain-1
+  update on ``(x1, y1)`` plus ``consis_gate x mean((fake - logits1)^2)``,
+  where ``fake`` is an eval-mode, no-gradient domain-0 forward of
+  ``image1`` with the parameters after the first update; the entropy term
+  on both.
+* ``DiscriminatorStep``: eval-mode, no-gradient forwards of each domain's
+  batch through the f32 segmenter, softmax, and one LSGAN update of the
+  discriminator alone (domain-0 maps and the one-hot labels are real,
+  domain-1 maps fake); no adversarial term reaches the segmenter.
+
+Every eval-mode forward inside a step switches the module to ``eval()``
+and back to ``train()`` under ``torch.no_grad()``: on the card it runs the
+eval DSBN+PReLU kernel, which has no backward. Train-time metrics are the
+classwise dice of the one-hot argmax per domain (``class_dice_{d}``).
 
 * The domains run one after the other. The JAX package's
   ``fused_domain_forward`` (one vmap over a stacked domain axis) is an exact
   schedule of the same sums, so the port accepts the key and ignores it.
-* Dropout draws from the ``torch.Generator`` given for each domain's forward
+* Dropout draws from the ``torch.Generator`` given for each forward
   (``models/common.py`` ``grouped_dropout``).
 * ``compute_dtype`` (``[training] precision = bfloat16``) mirrors the JAX
   package's policy (``utils/precision.py`` ``cast_apply_fn``): bf16 copies
@@ -38,6 +62,9 @@ from torch.func import functional_call
 from fpl_plus_torch.engine.optim import count_update, set_scheduled_lr
 from fpl_plus_torch.losses.util import get_classwise_dice, reshape_to_2d
 
+Batch = Dict[str, torch.Tensor]
+Generators = Optional[List[torch.Generator]]
+
 
 def train_dice(logits: torch.Tensor, label_prob: torch.Tensor
                ) -> torch.Tensor:
@@ -48,27 +75,37 @@ def train_dice(logits: torch.Tensor, label_prob: torch.Tensor
     return get_classwise_dice(hard.reshape(-1, k), reshape_to_2d(label_prob))
 
 
-class JointTrainStep:
-    """``step(batches, generators) -> metrics``: one joint iteration.
+def entropy_log2(logits: torch.Tensor) -> torch.Tensor:
+    """The reference's entropy regulariser (agent_seg.py:352-354): the
+    summed voxel entropy in bits of the softmax over the class axis of
+    ``logits [N, K, *sp]``, divided by N x spatial size."""
+    p = torch.softmax(logits, 1)
+    ent = -(p * torch.log2(p + 1e-10)).sum()
+    return ent / (logits.numel() // logits.shape[1])
 
-    ``batches``: one dict per domain of device tensors ``image [N, C, *sp]``,
-    ``label_prob [N, K, *sp]`` and, for ``fpl_uda``, ``pixel_weight
-    [N, 1, *sp]`` and ``image_weight [N]``. ``generators``: one list of
-    dropout generators per domain (or None). The module must be in train
-    mode."""
+
+class _Step:
+    """What the steps share: the (cast) forward, the loss of one domain
+    batch and one optimizer update."""
 
     def __init__(self, module: nn.Module, loss_calculator: Callable,
                  optimizer: torch.optim.Optimizer,
                  schedule: Optional[Callable[[int], float]] = None,
-                 num_domains: int = 2, fpl_uda: bool = False,
+                 fpl_uda: bool = False,
                  compute_dtype: Optional[torch.dtype] = None):
         self.module = module
         self.loss_calculator = loss_calculator
         self.optimizer = optimizer
         self.schedule = schedule
-        self.num_domains = num_domains
         self.fpl_uda = fpl_uda
         self.compute_dtype = compute_dtype
+
+    def _params(self):
+        """bf16 copies of the parameters (None at f32: the module's own)."""
+        if self.compute_dtype is None:
+            return None
+        return {k: p.to(self.compute_dtype)
+                for k, p in self.module.named_parameters()}
 
     def _forward(self, params, x, domain, generators):
         if self.compute_dtype is None:
@@ -77,38 +114,230 @@ class JointTrainStep:
                                (x.to(self.compute_dtype), domain),
                                {'dropout_generators': generators}).float()
 
-    def _loss_input(self, out, batch):
+    def _domain_loss(self, params, batch: Batch, domain: int,
+                     generators: Generators):
+        """(loss, logits) of one train-mode domain forward."""
+        out = self._forward(params, batch['image'], domain, generators)
         loss_input = {'prediction': out, 'ground_truth': batch['label_prob']}
         if self.fpl_uda and 'pixel_weight' in batch:
             loss_input['pixel_weight'] = batch['pixel_weight']
             if 'image_weight' in batch:
                 loss_input['image_weight'] = batch['image_weight']
-        return loss_input
+        return self.loss_calculator(loss_input), out
 
-    def __call__(self, batches: Sequence[Dict[str, torch.Tensor]],
-                 generators: Sequence[Optional[List[torch.Generator]]]
+    def _eval_forward(self, params, x, domain):
+        """An eval-mode (running statistics, no dropout), no-gradient
+        forward; the module returns to train mode."""
+        self.module.eval()
+        try:
+            with torch.no_grad():
+                return self._forward(params, x, domain, None).float()
+        finally:
+            self.module.train()
+
+    def _zero_grads(self) -> None:
+        """Zero gradients for every parameter, also those this update's
+        loss does not reach (the other domain's DSBN bank): the optimizer
+        then steps every parameter on every update, with a zero gradient
+        where there is none, as optax does (its Adam decays those moments,
+        moves the parameter on them, and keeps one update count for all
+        parameters); ``torch.optim`` would skip a parameter whose gradient
+        is None."""
+        self.optimizer.zero_grad(set_to_none=False)
+        for group in self.optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+
+    def _update(self, loss: Optional[torch.Tensor]) -> None:
+        """One optimizer update: from ``loss`` (backward first), or from
+        the gradients already in ``.grad`` when ``loss`` is None."""
+        if loss is not None:
+            self._zero_grads()
+            loss.backward()
+        set_scheduled_lr(self.optimizer, self.schedule)
+        self.optimizer.step()
+        count_update(self.optimizer)
+
+
+class JointTrainStep(_Step):
+    """``step(batches, generators) -> metrics``: one joint iteration.
+
+    ``batches``: one dict per domain of device tensors ``image [N, C, *sp]``,
+    ``label_prob [N, K, *sp]`` and, for ``fpl_uda``, ``pixel_weight
+    [N, 1, *sp]`` and ``image_weight [N]``. ``generators``: one list of
+    dropout generators per domain (or None). With ``accum_steps`` > 1 each
+    domain's entry is a sequence of ``accum_steps`` such dicts
+    (generators: of such lists), microbatch m of every domain forming
+    microbatch m. The module must be in train mode."""
+
+    def __init__(self, module, loss_calculator, optimizer, schedule=None,
+                 num_domains: int = 2, fpl_uda: bool = False,
+                 compute_dtype=None, accum_steps: int = 1):
+        super().__init__(module, loss_calculator, optimizer, schedule,
+                         fpl_uda, compute_dtype)
+        if accum_steps < 1:
+            raise ValueError('accum_steps must be >= 1, got {0}'.format(
+                accum_steps))
+        self.num_domains = num_domains
+        self.accum_steps = accum_steps
+
+    def _joint(self, batches, generators):
+        """Joint loss and per-domain logits of one (micro)batch."""
+        params = self._params()
+        total, logits_all = 0.0, []
+        for d, batch in enumerate(batches):
+            loss_d, out = self._domain_loss(params, batch, d, generators[d])
+            total = total + loss_d
+            logits_all.append(out.detach())
+        return total / self.num_domains, logits_all
+
+    def __call__(self, batches: Sequence, generators: Sequence
                  ) -> Dict[str, torch.Tensor]:
         if len(batches) != self.num_domains:
             raise ValueError('{0} domain batches for {1} domains'.format(
                 len(batches), self.num_domains))
-        params = None
-        if self.compute_dtype is not None:
-            params = {k: p.to(self.compute_dtype)
-                      for k, p in self.module.named_parameters()}
-        total, logits_all = 0.0, []
-        for d, batch in enumerate(batches):
-            out = self._forward(params, batch['image'], d, generators[d])
-            total = total + self.loss_calculator(self._loss_input(out, batch))
-            logits_all.append(out.detach())
-        loss = total / self.num_domains
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        set_scheduled_lr(self.optimizer, self.schedule)
-        self.optimizer.step()
-        count_update(self.optimizer)
-        metrics = {'loss': loss.detach()}
-        with torch.no_grad():
-            for d, batch in enumerate(batches):
-                metrics['class_dice_{0}'.format(d)] = train_dice(
-                    logits_all[d], batch['label_prob'])
+        if self.accum_steps == 1:
+            micro, micro_gens = [batches], [generators]
+        else:
+            for d, b in enumerate(batches):
+                if len(b) != self.accum_steps:
+                    raise ValueError('domain {0}: {1} microbatches for '
+                                     'accum_steps {2}'.format(
+                                         d, len(b), self.accum_steps))
+            micro = list(zip(*batches))
+            micro_gens = list(zip(*[g if g is not None
+                                    else [None] * self.accum_steps
+                                    for g in generators]))
+        self._zero_grads()
+        losses, dices = [], []
+        for mb, mg in zip(micro, micro_gens):
+            loss, logits_all = self._joint(mb, mg)
+            loss.backward()
+            losses.append(loss.detach())
+            with torch.no_grad():
+                dices.append([train_dice(logits_all[d], mb[d]['label_prob'])
+                              for d in range(self.num_domains)])
+        if self.accum_steps > 1:
+            for p in self.module.parameters():
+                p.grad.mul_(1.0 / self.accum_steps)
+        self._update(None)
+        metrics = {'loss': torch.stack(losses).mean()}
+        for d in range(self.num_domains):
+            metrics['class_dice_{0}'.format(d)] = torch.stack(
+                [dc[d] for dc in dices]).mean(0)
         return metrics
+
+
+class AlternatingTrainStep(_Step):
+    """``step(batches, generators) -> metrics``: per domain in order, the
+    loss (plus ``entropy_coeff`` x ``entropy_log2`` of its logits) and one
+    optimizer update; the metric ``loss`` is the mean of the domains'."""
+
+    def __init__(self, module, loss_calculator, optimizer, schedule=None,
+                 num_domains: int = 2, fpl_uda: bool = False,
+                 compute_dtype=None, entropy_coeff: float = 0.0):
+        super().__init__(module, loss_calculator, optimizer, schedule,
+                         fpl_uda, compute_dtype)
+        self.num_domains = num_domains
+        self.entropy_coeff = entropy_coeff
+
+    def __call__(self, batches: Sequence[Batch],
+                 generators: Sequence[Generators]) -> Dict[str, torch.Tensor]:
+        if len(batches) != self.num_domains:
+            raise ValueError('{0} domain batches for {1} domains'.format(
+                len(batches), self.num_domains))
+        metrics, losses = {}, []
+        for d, batch in enumerate(batches):
+            loss, out = self._domain_loss(self._params(), batch, d,
+                                          generators[d])
+            if self.entropy_coeff:
+                loss = loss + self.entropy_coeff * entropy_log2(out)
+            self._update(loss)
+            losses.append(loss.detach())
+            with torch.no_grad():
+                metrics['class_dice_{0}'.format(d)] = train_dice(
+                    out.detach(), batch['label_prob'])
+        metrics['loss'] = torch.stack(losses).mean()
+        return metrics
+
+
+class DualConsistencyStep(_Step):
+    """``step((batch0, batch1), generators, consis_gate) -> metrics``.
+    ``batch1`` carries ``image1``; ``generators``: three lists (or None),
+    for the domain-0 forward, the fake-source forward and the domain-1
+    forward. Metrics: ``loss`` (the mean of the two updates' losses),
+    ``class_dice_0``, ``class_dice_1`` and ``loss_consis``."""
+
+    def __init__(self, module, loss_calculator, optimizer, schedule=None,
+                 fpl_uda: bool = False, compute_dtype=None,
+                 entropy_coeff: float = 1.0):
+        super().__init__(module, loss_calculator, optimizer, schedule,
+                         fpl_uda, compute_dtype)
+        self.entropy_coeff = entropy_coeff
+
+    def _entropy(self, logits):
+        return self.entropy_coeff * entropy_log2(logits) \
+            if self.entropy_coeff else 0.0
+
+    def __call__(self, batches: Sequence[Batch],
+                 generators: Sequence[Generators], consis_gate: float
+                 ) -> Dict[str, torch.Tensor]:
+        batch0, batch1 = batches
+        if 'image1' not in batch1:
+            raise ValueError('the dual-consistency step needs image1 in the '
+                             'domain-1 batch (an image1 manifest column)')
+        # domain-0 update: (x0, y0) and the fake source (image1, y1)
+        params = self._params()
+        l0, logits0 = self._domain_loss(params, batch0, 0, generators[0])
+        fake_batch = dict(batch1, image=batch1['image1'])
+        l_fake, _ = self._domain_loss(params, fake_batch, 0, generators[1])
+        loss0 = l0 + l_fake + self._entropy(logits0)
+        self._update(loss0)
+        # domain-1 update against the new parameters' eval-mode view of
+        # the fake source
+        params = self._params()
+        fake = self._eval_forward(params, batch1['image1'], 0)
+        l1, logits1 = self._domain_loss(params, batch1, 1, generators[2])
+        consis = torch.mean(torch.square(fake - logits1))
+        loss1 = l1 + consis_gate * consis + self._entropy(logits1)
+        self._update(loss1)
+        with torch.no_grad():
+            return {'loss': (loss0.detach() + loss1.detach()) / 2,
+                    'class_dice_0': train_dice(logits0.detach(),
+                                               batch0['label_prob']),
+                    'class_dice_1': train_dice(logits1.detach(),
+                                               batch1['label_prob']),
+                    'loss_consis': consis.detach()}
+
+
+class DiscriminatorStep:
+    """``step(batches) -> {'loss_dis'}``: the LSGAN update of ``dis``
+    (reference agent_seg.py:96-102,373-400) on the softmax maps of eval-mode,
+    no-gradient forwards of the f32 segmenter ``module``, one per domain
+    batch."""
+
+    def __init__(self, module: nn.Module, dis: nn.Module,
+                 optimizer: torch.optim.Optimizer):
+        self.module = module
+        self.dis = dis
+        self.optimizer = optimizer
+
+    def __call__(self, batches: Sequence[Batch]) -> Dict[str, torch.Tensor]:
+        self.module.eval()
+        try:
+            with torch.no_grad():
+                outs = [torch.softmax(self.module(b['image'], d).float(), 1)
+                        for d, b in enumerate(batches)]
+        finally:
+            self.module.train()
+        pred_real = self.dis(outs[0])
+        real = self.dis(batches[0]['label_prob'])
+        loss = (torch.mean((pred_real - 1.0) ** 2)
+                + torch.mean((real - 1.0) ** 2)) / 2.0
+        if len(outs) > 1:
+            loss = loss + torch.mean(self.dis(outs[1]) ** 2)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return {'loss_dis': loss.detach()}

@@ -10,7 +10,10 @@ The FPL+ weight columns: ``image_weight`` (a float per row) and
 (``pixel_weight[pixel_weight < 1] = 0`` then ``*= image_weight``, reference
 ``set_weight_`` :165-168); an ``image_weight`` without ``pixel_weight``
 gives an all-ones map; an unreadable pixel-weight file falls back to a
-constant 0.5 map (:197-203), logged. The manifest is read with the ``csv``
+constant 0.5 map (:197-203), logged. An ``image1`` column (the fake-source
+translation that the dual-consistency training feeds through bank 0) loads
+as ``image1``; when its file cannot be read, ``image1`` is the image
+itself, as in the JAX package. The manifest is read with the ``csv``
 module.
 
 Two byte-bounded LRU caches serve the training stages, which revisit the
@@ -100,6 +103,7 @@ class NiftyDataset:
                                  if 'image_weight' in keys else None)
         self.pixel_weight_idx = (keys.index('pixel_weight')
                                  if 'pixel_weight' in keys else None)
+        self.image1_idx = keys.index('image1') if 'image1' in keys else None
         self._volumes = _LRU(cache_bytes) if cache_bytes else None
         # the deterministic prefix of the chain, cached per item
         self._prefix = self._suffix = self._samples = None
@@ -175,6 +179,15 @@ class NiftyDataset:
                 raise ValueError('pixel weight shape {0} != image shape {1}'
                                  .format(sample['pixel_weight'].shape[1:],
                                          image.shape[1:]))
+        if self.image1_idx is not None:
+            try:
+                sample['image1'] = self._load_array(idx, self.image1_idx,
+                                                    np.float32)
+            except (OSError, ValueError, KeyError):
+                logging.warning('image1 unreadable for item %d (%s); using '
+                                'the image', idx,
+                                self.rows[idx][self.image1_idx])
+                sample['image1'] = image
         return sample
 
     def __getitem__(self, idx):

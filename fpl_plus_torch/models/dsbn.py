@@ -20,6 +20,11 @@ running_var/num_batches_tracked``; statistics are f32 buffers, eps 1e-5.
   running statistics, f32 (the mixed-type form torch accepts for a bf16
   input), so a bf16 forward normalises in f32 and rounds once; JAX rounds
   the affine terms to bf16 first.
+
+``InstanceNorm`` (the discriminator's normalisation, the JAX package's
+``models/dsbn.py:84-93``): per sample and channel over the spatial axes,
+biased variance, eps 1e-5, no affine terms and no running statistics; that
+is ``nn.InstanceNorm3d(affine=False)``.
 """
 from __future__ import annotations
 
@@ -73,3 +78,9 @@ class DomainBatchNorm(nn.Module):
                          self.momentum, self.eps)
         bank.num_batches_tracked.add_(1)
         return F.prelu(y, prelu_alpha.to(y.dtype))
+
+
+class InstanceNorm(nn.InstanceNorm3d):
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, affine=False,
+                         track_running_stats=False)

@@ -20,19 +20,24 @@ statistics and the bank update, or the fused eval kernel). Dropout is on
 only when the forward is given ``dropout_generators``, never through
 ``module.train()``: the train step passes one generator per domain forward,
 MC-dropout at test time one per pass.
+
+``Dis`` is the output-space discriminator of the ``dis`` training variant
+(reference unet2d5_dsbn.py:190-215, the JAX package's
+``models/unet2d5_dsbn.py:213-231``).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fpl_plus_torch.models.common import (PReLU, fold_depth_to_batch,
                                           grouped_dropout, max_pool,
                                           unfold_depth_from_batch,
                                           upsample_align_corners)
-from fpl_plus_torch.models.dsbn import DomainBatchNorm
+from fpl_plus_torch.models.dsbn import DomainBatchNorm, InstanceNorm
 
 
 def _conv(dim: int):
@@ -178,3 +183,27 @@ class UNet2D5(UNet2D5DSBN):
 
     def forward(self, x, domain_label: int = 0, dropout_generators=None):
         return super().forward(x, 0, dropout_generators)
+
+
+class Dis(nn.Module):
+    """LSGAN 3D patch discriminator on softmax maps ``[N, in_chns, D, H,
+    W]``: 4x4x4 convolutions with padding 1 (64 stride 2, 128 stride 2, 256
+    stride 2, 512, 1), LeakyReLU 0.2 after the first four, InstanceNorm
+    after the second to the fourth."""
+
+    def __init__(self, in_chns: int):
+        super().__init__()
+        chns = [in_chns, 64, 128, 256, 512]
+        self.convs = nn.ModuleList(
+            nn.Conv3d(chns[i], chns[i + 1], 4, stride=2 if i < 3 else 1,
+                      padding=1) for i in range(4))
+        self.norms = nn.ModuleList(InstanceNorm(c) for c in chns[2:])
+        self.out_conv = nn.Conv3d(512, 1, 4, padding=1)
+
+    def forward(self, x):
+        for i, conv in enumerate(self.convs):
+            x = conv(x)
+            if i > 0:
+                x = self.norms[i - 1](x)
+            x = F.leaky_relu(x, 0.2)
+        return self.out_conv(x)

@@ -24,6 +24,12 @@ class AbstractTransform(object):
     def __call__(self, sample):
         return sample
 
+    def inverse_transform_for_prediction(self, sample):
+        """Undo this transform on ``sample['predict']`` (logits ``[N, K,
+        *img]``) on the host."""
+        raise ValueError('inverse transform not implemented for {0}'.format(
+            type(self).__name__))
+
     def inverse_selection(self, sample):
         """When this transform's prediction inverse is a PURE spatial
         selection — it keeps a contiguous sub-window of the prediction and

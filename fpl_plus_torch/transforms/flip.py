@@ -4,7 +4,8 @@ Behaviour parity: reference PyMIC/pymic/transform/flip.py:14-73 and the JAX
 package's ``transforms/flip.py``: an independent coin (``random.random() >
 0.5``) per enabled axis, in the order width, height, depth; the image and
 the other spatial keys flip together; the axes are recorded as
-``RandomFlip_Param``.
+``RandomFlip_Param``; the prediction inverse flips the prediction back
+along them.
 """
 from __future__ import annotations
 
@@ -36,4 +37,10 @@ class RandomFlip(AbstractTransform):
         if flip_axis:
             return apply_spatial(
                 sample, lambda a: np.flip(a, flip_axis).copy(), self.task)
+        return sample
+
+    def inverse_transform_for_prediction(self, sample):
+        flip_axis = self.load_inverse_param(sample)
+        if flip_axis:
+            sample['predict'] = np.flip(sample['predict'], flip_axis).copy()
         return sample

@@ -1,5 +1,7 @@
 """Intensity normalization (reference PyMIC/pymic/transform/normalize.py):
-per-channel z-score with optional non-positive-region randomization."""
+per-channel z-score with optional non-positive-region randomization;
+``NormalizeWithMeanStd_dual`` normalises ``image1`` (the fake-source
+translation of the dual-consistency training) the same way."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,11 +41,23 @@ class NormalizeWithMeanStd(AbstractTransform):
         # ignore_non_positive fills the background with fresh noise
         return not self.ignore_np
 
-    def __call__(self, sample):
-        image = sample['image']
+    def _normalize(self, image):
         chns = self.chns if self.chns is not None else range(image.shape[0])
         means = self.mean if self.mean is not None else [None] * len(list(chns))
         stds = self.std if self.std is not None else [None] * len(list(chns))
-        sample['image'] = _zscore_channels(image, list(chns), means, stds,
-                                           self.ignore_np)
+        return _zscore_channels(image, list(chns), means, stds,
+                                self.ignore_np)
+
+    def __call__(self, sample):
+        sample['image'] = self._normalize(sample['image'])
+        return sample
+
+
+class NormalizeWithMeanStd_dual(NormalizeWithMeanStd):
+    """The same z-score on ``image`` and, when present, ``image1``."""
+
+    def __call__(self, sample):
+        sample = super().__call__(sample)
+        if 'image1' in sample:
+            sample['image1'] = self._normalize(sample['image1'])
         return sample

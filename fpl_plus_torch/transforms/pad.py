@@ -2,8 +2,11 @@
 
 Behavior parity: reference PyMIC/pymic/transform/pad.py:103-192 — reflect-pad
 each spatial axis up to ``output_size`` (or the next multiple when
-``ceil_mode``), record (margin_lower, margin_upper), inverse crops the
-margins off the prediction volume (``inverse_selection``).
+``ceil_mode``), record (margin_lower, margin_upper); the prediction inverse
+crops the margins off: on the host (``inverse_transform_for_prediction``),
+or folded into the device-label path as a selection (``inverse_selection``).
+``Pad_dual`` is the same transform under the reference's second name (the
+spatial keys, ``image1`` included, are padded alike).
 """
 from __future__ import annotations
 
@@ -45,6 +48,20 @@ class Pad(AbstractTransform):
             return np.pad(arr, pad, 'reflect')
         return apply_spatial(sample, do_pad, self.task)
 
+    def inverse_transform_for_prediction(self, sample):
+        margin_lower, margin_upper = self.load_inverse_param(sample)
+        pred = sample['predict']
+        sample['predict'] = pred[(slice(None), slice(None)) + tuple(
+            slice(lo, s - up) for lo, up, s in
+            zip(margin_lower, margin_upper, pred.shape[2:]))]
+        return sample
+
     def inverse_selection(self, sample):
         # the prediction inverse is exactly a crop by the recorded margins
         return tuple(self.load_inverse_param(sample))
+
+
+class Pad_dual(Pad):
+    """The reference's name for Pad in the dual-image chains (reference
+    pad.py:13-102); it reads the ``Pad_*`` keys."""
+    _param_prefix = 'Pad'

@@ -18,6 +18,10 @@ layout of ``utils/torch_convert.py`` in the JAX package:
   gradient-style transpose after the flip);
 * DSBN rows ``[n_domains, C]`` split into per-domain banks; the scalar PReLU
   ``alpha`` becomes ``weight`` of shape [1].
+
+``dis_state_dict_from_jax`` does the same for the discriminator ``Dis``:
+flax ``Conv_0`` .. ``Conv_3`` -> ``convs.{i}``, ``Conv_4`` -> ``out_conv``
+(its InstanceNorms have no parameters).
 """
 from __future__ import annotations
 
@@ -92,4 +96,17 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict,
     return {k: torch.from_numpy(np.array(v, dtype=np.int64
                                          if k.endswith('num_batches_tracked')
                                          else np.float32))
+            for k, v in sd.items()}
+
+
+def dis_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``Dis`` params -> a state dict ``Dis.load_state_dict(...,
+    strict=True)`` accepts."""
+    sd = {}
+    for i in range(5):
+        conv = params['Conv_{0}'.format(i)]
+        name = 'convs.{0}'.format(i) if i < 4 else 'out_conv'
+        sd[name + '.weight'] = _conv_kernel(conv['kernel'])
+        sd[name + '.bias'] = np.asarray(conv['bias'])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}

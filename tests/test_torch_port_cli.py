@@ -9,6 +9,8 @@ checkpoint. Both resolve the checkpoint through the shared
 ``<prefix>_latest.txt`` pointer. The Pad transform adds real margins, so the
 inverse crop runs. Tolerance: at least 99.9% of voxels agree (expected:
 identical; a label can flip only where two logits tie to ~1e-5).
+The workspace serves the host-path tests too
+(``test_torch_port_host_inverse.py``, ``test_torch_port_ensemble.py``).
 """
 import os
 
@@ -159,18 +161,21 @@ def test_port_batched_and_bf16_stages(workspace):
 
 
 def test_cli_refuses_what_is_not_ported(workspace):
+    """A checkpoint list needs ``ckpt_mode = 3`` and mode 3 needs a list
+    (``ValueError``, as the JAX agent); without a card and without
+    ``device='cpu'`` the CLI raises."""
     cfg = _cfg(workspace, 'torch.cfg', 'out_torch')
-    evaluation = _cfg(workspace, 'eval.cfg', 'out_eval',
-                      extra='\n[evaluation]\nmetric_1 = dice')
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        torch_main(['train', evaluation], device='cpu')
-    ens = _cfg(workspace, 'ens.cfg', 'out_ens')
-    with open(ens) as f:
-        text = f.read().replace('ckpt_mode = 0', 'ckpt_mode = 3')
-    with open(ens, 'w') as f:
-        f.write(text)
-    with pytest.raises(NotImplementedError, match='ckpt_mode 3'):
-        torch_main(['test', ens], device='cpu')
+    ckpt = os.path.join(workspace, 'model', 'gen', 'gen_5.pt')
+    for mode, name in ((3, ckpt), (2, [ckpt, ckpt])):
+        bad = _cfg(workspace, 'bad.cfg', 'out_bad', extra='ckpt_name = ' + (
+            '[{0}, {0}]'.format(ckpt) if isinstance(name, list) else ckpt))
+        with open(bad) as f:
+            text = f.read().replace('ckpt_mode = 0',
+                                    'ckpt_mode = {0}'.format(mode))
+        with open(bad, 'w') as f:
+            f.write(text)
+        with pytest.raises(ValueError, match='ckpt_mode should be 3'):
+            torch_main(['test', bad], device='cpu')
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_main(['test', cfg])

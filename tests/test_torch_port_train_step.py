@@ -81,11 +81,37 @@ def _cl(x):
     return np.moveaxis(np.asarray(x), 1, -1)
 
 
+def adam_mu(opt_state):
+    """The first moment of the Adam inside a JAX optimizer state."""
+    import optax
+    return [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)][0].mu
+
+
+def tiny_variables(seed, net_cfg=TINY):
+    """JAX ``(params, batch_stats)`` of ``net_cfg`` without a JAX compile:
+    the port's network initialised from ``seed`` through the JAX package's
+    numpy converter, the DSBN statistics then made random."""
+    from fpl_plus_tpu.utils.torch_convert import convert_unet2d5_dsbn
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        net = create_network(net_cfg)
+    params, stats = convert_unet2d5_dsbn(
+        {k: v.numpy() for k, v in net.state_dict().items()}, net_cfg)
+    return params, randomize_stats(stats, seed)
+
+
+def torch_batches(step_batches):
+    """Per-domain numpy batches -> dicts of CPU tensors."""
+    return [{k: torch.from_numpy(v) for k, v in b.items()}
+            for b in step_batches]
+
+
 def run_jax(jax_step, params, stats, batches):
     """Two JAX steps from ``(params, stats)`` on per-step tuples of
     channels-first numpy domain batches. Returns the metrics of each step,
     the first step's gradients, and the final params and stats."""
-    import optax
     from fpl_plus_tpu.engine.train import create_train_state
     _, optimizer, step = jax_step
     state = create_train_state(jax.tree_util.tree_map(np.array, params),
@@ -98,12 +124,8 @@ def run_jax(jax_step, params, stats, batches):
         state, m = step(state, jb, jax.random.PRNGKey(i))
         metrics.append(jax.device_get(m))
         if i == 0:
-            adam = [s for s in jax.tree_util.tree_leaves(
-                state.opt_state, is_leaf=lambda s: isinstance(
-                    s, optax.ScaleByAdamState))
-                if isinstance(s, optax.ScaleByAdamState)][0]
             grads = jax.tree_util.tree_map(lambda mu: np.asarray(mu) / 0.1,
-                                           adam.mu)
+                                           adam_mu(state.opt_state))
     return metrics, grads, jax.device_get((state.params, state.batch_stats))
 
 
@@ -123,7 +145,7 @@ def check_grads(ref_params_grads, stats, got):
     return top
 
 
-def check_params(ref_params, ref_stats, ref_grads, got_sd):
+def check_params(ref_params, ref_stats, ref_grads, got_sd, lr=LR):
     ref = _port_names(ref_params, ref_stats)
     grads = _port_names(ref_grads, ref_stats)
     top = max(float(v.abs().max()) for k, v in grads.items()
@@ -139,13 +161,13 @@ def check_params(ref_params, ref_stats, ref_grads, got_sd):
             continue
         if name.endswith('running_mean'):
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                                       atol=0.1 * 4 * LR, err_msg=name)
+                                       atol=0.1 * 4 * lr, err_msg=name)
             continue
         err = (got - want).abs().numpy()
         g = grads[name].abs().numpy()
         signal = g > 10 * (1e-3 * g.max() + 1e-5 * top)
-        assert err[signal].max(initial=0) <= 0.5 * LR, name
-        assert err.max() <= 4 * LR, name
+        assert err[signal].max(initial=0) <= 0.5 * lr, name
+        assert err.max() <= 4 * lr, name
 
 
 def make_batches(seed, steps=2, n=2):
@@ -187,8 +209,7 @@ def test_joint_step_matches_jax(jax_step):
     step = JointTrainStep(net, create_loss_calculator(
         {'training': TRAIN_CFG}), opt, sched, num_domains=2, fpl_uda=True)
     for i, step_batches in enumerate(batches):
-        m = step([{k: torch.from_numpy(v) for k, v in b.items()}
-                  for b in step_batches], [None, None])
+        m = step(torch_batches(step_batches), [None, None])
         for key in ('loss', 'class_dice_0', 'class_dice_1'):
             np.testing.assert_allclose(m[key].numpy(), ref_metrics[i][key],
                                        rtol=1e-4, err_msg=key)
@@ -340,20 +361,23 @@ def test_train_cli_matches_jax_step(jax_step, tmp_path, monkeypatch):
 
 
 def test_train_cli_refusals(tmp_path):
-    """The train settings whose step is not ported, and an
-    ``[evaluation]`` section, raise before any training."""
+    """The ``[training]`` combinations the JAX package refuses raise
+    ``ValueError`` before any training: gradient accumulation off the
+    joint path (``dual = False``, ``dis``, ``dual_consistency``) and a
+    count below 1."""
     root = str(tmp_path)
     write_train_domain(root, 0, np.random.RandomState(1), n=1)
-    for extra, err in (('dual = False', 'dual = False'),
-                       ('grad_accum_steps = 2', 'grad_accum_steps'),
-                       ('dis = True', 'dis'),
-                       ('dual_consistency = True', 'dual_consistency'),
-                       ('\n[evaluation]\nmetric_1 = dice', 'evaluation')):
+    for extra, err in (
+            ('grad_accum_steps = 2\ndual = False', 'dual = True'),
+            ('grad_accum_steps = 2\ndis = True', 'dual_consistency / dis'),
+            ('grad_accum_steps = 2\ndual_consistency = True',
+             'dual_consistency / dis'),
+            ('grad_accum_steps = 0', '>= 1')):
         cfg = os.path.join(root, 'r.cfg')
         with open(cfg, 'w') as f:
             f.write(CLI_CFG.format(root=root, extra=extra).replace(
-                'dual = True\n', '' if extra == 'dual = False' else
+                'dual = True\n', '' if 'dual = False' in extra else
                 'dual = True\n'))
-        with pytest.raises(NotImplementedError, match=err):
+        with pytest.raises(ValueError, match=err):
             torch_main(['train', cfg], device='cpu')
     assert not os.path.exists(os.path.join(root, 'model', 'gen', 'gen_2.pt'))
