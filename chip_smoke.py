@@ -77,10 +77,29 @@ then runs, each phase failing the script on any error:
     (uncertainties against phase 7's), ``ckpt_mode = 3`` over phase 13's
     ``train_2.pt`` and ``train_4.pt`` and over ``[train_4, train_4]``
     (labels equal to one checkpoint's), and a CenterCrop chain; launches
-    and ms per volume of each.
+    and ms per volume of each;
+18. network zoo: each new network of the registry (UNet2D plain and with
+    deep supervision, UNet2D_ScSE, DualBranch, URPC, CCT, AttentionUNet2D,
+    NestedUNet2D, COPLENet, UNet3D plain and with deep supervision,
+    UNet3D_ScSE, AEs) card vs CPU at small width (TF32 off, one state
+    dict, phase 3's tolerance), then one eval forward at the FPL+ widths of
+    8 windows ([28,128,128] folded to 8 x 28 slices for the 2D nets,
+    [32,128,128] for the 3D ones): CUDA-event ms (median of 5), GMAC per
+    window counted from the module shapes, peak device memory; none may
+    launch the DSBN+PReLU kernel;
+19. zoo training: 3 single-domain steps per new network (the deep-
+    supervised UNet2D and UNet3D with DeepSuperviseLoss over DiceLoss;
+    DualBranch, CCT and URPC hand the loss their train-mode lists), batch
+    4 crops, Adam: ms per step, peak memory, no kernel launch;
+20. supervised CLI path: ``cli train`` of a single-domain deep-supervised
+    UNet2D at full width (4 iterations, RandomRotate, RandomRescale,
+    GammaCorrection, GaussianNoise and NormalizeWithPercentiles in its
+    chain), the auto test stage on the phase-4 volumes and ``eva_main``,
+    with 0 kernel launches; then the Inferer with a UNet2D_URPC predictor
+    (4 heads) card vs CPU under both ``multiscale_counter`` modes.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17) sets the launch counter to
-0 just before it and reads it just after. Then it prints one
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20) sets the launch counter
+to 0 just before it and reads it just after. Then it prints one
 ``{"kernels": [...]}``
 line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -154,7 +173,7 @@ GRAD_NET_TOL = 1e-3
 STATS_TOL = 1e-5
 TRAIN_BATCH = 4                          # flagship: 4 + 4 crops
 TRAIN_STEPS, TRAIN_WARMUP = 12, 3
-REPLACES = 'fpl_plus_tpu/ops/pallas_fused.py:48'
+REPLACES = 'fpl_plus_tpu/ops/pallas_fused.py:49'
 CONVS = (torch.nn.Conv2d, torch.nn.Conv3d)
 TRANSPOSED = (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
 SOURCE = 'fpl_plus_torch/ops/dsbn_prelu.py'
@@ -226,6 +245,20 @@ def cuda_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Convolutions and matmuls in full f32 inside the block."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def dsbn_shapes(batch):
@@ -302,9 +335,12 @@ def kernel_phase(dev, rate, batch=BATCH):
 
 
 def init_random_(net, seed):
-    """Seeded weights at a trained net's scales: He-normal convs, BN
-    affine near identity, running statistics away from 0/1."""
+    """Seeded weights at a trained net's scales: He-normal convolution and
+    dense weights, (DS)BN affine near identity, running statistics away
+    from 0/1."""
     gen = torch.Generator().manual_seed(seed)
+    transposed = {n + '.weight' for n, m in net.named_modules()
+                  if isinstance(m, TRANSPOSED)}
     with torch.no_grad():
         for name, p in list(net.named_parameters()) + list(
                 net.named_buffers()):
@@ -314,17 +350,39 @@ def init_random_(net, seed):
                 p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
             elif name.endswith('running_mean'):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
-            elif '.bns.' in name and name.endswith('weight'):
+            elif 'relu_' in name:
+                p.fill_(0.25)
+            elif name.endswith('weight') and p.dim() == 1:   # (DS)BN scale
                 p.copy_(torch.rand(p.shape, generator=gen) * 0.4 + 0.8)
             elif name.endswith('bias'):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
-            elif 'relu_' in name:
-                p.fill_(0.25)
-            else:                        # conv / transposed-conv weights
-                fan_in = (p.shape[0] if '.trans' in name
+            else:        # convolution, transposed-convolution, dense weights
+                fan_in = (p.shape[0] if name in transposed
                           else p[0].numel())
                 p.copy_(torch.randn(p.shape, generator=gen)
                         * (2.0 / fan_in) ** 0.5)
+
+
+@contextlib.contextmanager
+def counting_macs(net):
+    """Multiply-accumulates of the convolutions and dense layers of the
+    forwards in the block, counted from the module shapes: each output
+    element of a conv is in_channels x taps MACs (a dense layer: in
+    features); a k=2/s=2 transposed conv spreads each input element over
+    out_channels x taps outputs once."""
+    macs = [0]
+
+    def count(mod, args, out):
+        n = args[0].numel() if isinstance(mod, TRANSPOSED) else out.numel()
+        macs[0] += n * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, CONVS + TRANSPOSED + (torch.nn.Linear,))]
+    try:
+        yield macs
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def forward_phase(dev):
@@ -335,26 +393,13 @@ def forward_phase(dev):
     init_random_(net, SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn((1, 1) + tuple(WINDOW), generator=gen)
-    seen, macs = [], [0]
-
-    def count_macs(mod, args, out):
-        # each output element of a conv is in_channels x taps MACs; a
-        # k=2/s=2 transposed conv spreads each input element over
-        # out_channels x taps outputs once
-        n = out.numel() if isinstance(mod, CONVS) else args[0].numel()
-        macs[0] += n * mod.weight[0].numel()
-
+    seen = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: seen.append(tuple(args[0].shape)))
         for m in net.modules() if isinstance(m, DomainBatchNorm)]
-    hooks += [m.register_forward_hook(count_macs) for m in net.modules()
-              if isinstance(m, CONVS + TRANSPOSED)]
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.inference_mode():
-        want = net(x, DOMAIN)
+    with tf32_off(), torch.inference_mode():
+        with counting_macs(net) as macs:
+            want = net(x, DOMAIN)
         for h in hooks:
             h.remove()
         check(seen == dsbn_shapes(1), 'DSBN launch shapes {0} != {1}'.format(
@@ -364,8 +409,6 @@ def forward_phase(dev):
         check(dsbn_prelu.launches - before == 18,
               'forward launched the kernel {0} times, not 18'.format(
                   dsbn_prelu.launches - before))
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
-        = flags
     check(bool(torch.isfinite(got).all()), 'non-finite logits on the card')
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
@@ -542,15 +585,10 @@ def fold_phase(dev, net):
         return functools.partial(net_dev, domain_label=DOMAIN,
                                  dropout_generators=generators)
 
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     inferer = Inferer(cfg, dev)
-    folded = inferer.run_passes(mc(gens()), image, FPL_PASSES)
-    seq = [inferer.run(mc([g]), image) for g in gens()]
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
-        = flags
+    with tf32_off():
+        folded = inferer.run_passes(mc(gens()), image, FPL_PASSES)
+        seq = [inferer.run(mc([g]), image) for g in gens()]
     del net_dev
     check(folded.shape == (FPL_PASSES, 2) + FOLD_VOLUME,
           'folded shape {0}'.format(folded.shape))
@@ -676,15 +714,10 @@ def batched_phase(root, labels_f32, names, fwd_per_volume):
               'labels agree with per-volume (TF32) on {6}'.format(
                   rep, SERVE_BATCH, r['ms'], r['forwards'],
                   SERVE_BATCH * BATCH, r['launches'], r['agree']))
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    try:
+    with tf32_off():             # the stages' matmul_precision = highest
         highest = 'matmul_precision = highest'
         ref = stage('single_f32', 1, highest)
         r = stage('batch_f32', SERVE_BATCH, highest)
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = flags
     r['agree'] = agree(r['labels'], ref['labels'])
     print('batched TF32 off: {0} forwards, {1} kernel launches, labels '
           'agree with per-volume (TF32 off) on {2}'.format(
@@ -794,17 +827,10 @@ def train_step_phase(dev):
     net_dev = copy.deepcopy(net).to(dev)
     gen = torch.Generator().manual_seed(SEED + 5)
     batches = [train_inputs(gen, 1, 'cpu') for _ in range(2)]
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with tf32_off():
         got = make_step(net_dev)([{k: v.to(dev) for k, v in b.items()}
                                   for b in batches], [None, None])
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = flags
     want = make_step(net)(batches, [None, None])
     loss_err = abs(float(got['loss']) - float(want['loss']))
     dice_err = max(float((got[k].cpu() - want[k]).abs().max())
@@ -1326,18 +1352,11 @@ def variant_check_phase(dev):
         net_dev = copy.deepcopy(net).to(dev)
         net_cpu = copy.deepcopy(net)
         args = ([None] * 3, 1.0) if kind == 'consistency' else ([None] * 2,)
-        flags = (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with tf32_off():
             got = make_variant_step(kind, net_dev)(
                 [{k: v.to(dev) for k, v in b.items()} for b in batches],
                 *args)
             torch.cuda.synchronize()
-        finally:
-            torch.backends.cudnn.allow_tf32, \
-                torch.backends.cuda.matmul.allow_tf32 = flags
         want = make_variant_step(kind, net_cpu)(batches, *args)
         loss_err = abs(float(got['loss']) - float(want['loss']))
         dice_err = max(float((got[k].cpu() - want[k]).abs().max())
@@ -1475,6 +1494,350 @@ def test_paths_phase(root, names, serving, fpl):
 
 
 
+# phases 18-20: the network zoo at the FPL+ widths (bench.py:60 NET_CFG)
+ZOO_CFG = {'in_chns': 1, 'class_num': 2,
+           'feature_chns': [32, 64, 128, 256, 512],
+           'dropout': [0.0, 0.0, 0.3, 0.4, 0.5]}
+ZOO_SMALL = [8, 16, 16, 32, 32]           # the card-vs-CPU check's widths
+ZOO_WINDOW_3D = [32, 128, 128]            # every axis divides by 16
+ZOO_REPS = 5
+# tag: (net_type, extra [network] keys); phase 19 trains all but the plain
+# UNet2D and UNet3D (their deep-supervised versions stand for them)
+ZOO = {
+    'UNet2D': ('UNet2D', {}),
+    'UNet2D-ds': ('UNet2D', {'deep_supervise': True}),
+    'UNet2D_ScSE': ('UNet2D_ScSE', {}),
+    'UNet2D_DualBranch': ('UNet2D_DualBranch', {}),
+    'UNet2D_URPC': ('UNet2D_URPC', {}),
+    'UNet2D_CCT': ('UNet2D_CCT', {}),
+    'AttentionUNet2D': ('AttentionUNet2D', {}),
+    'NestedUNet2D': ('NestedUNet2D', {}),
+    'COPLENet': ('COPLENet', {}),
+    'UNet3D': ('UNet3D', {}),
+    'UNet3D-ds': ('UNet3D', {'deep_supervise': True}),
+    'UNet3D_ScSE': ('UNet3D_ScSE', {}),
+    'AEs': ('AEs', {}),
+}
+ZOO_TRAIN = [t for t in ZOO if t not in ('UNet2D', 'UNet3D')]
+# heads of a forward: eval mode / train mode (a list, or 1 for a tensor)
+ZOO_HEADS = {'UNet2D-ds': (4, 4), 'UNet3D-ds': (4, 4),
+             'UNet2D_URPC': (4, 4), 'UNet2D_DualBranch': (1, 2),
+             'UNet2D_CCT': (1, 4)}
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def zoo_net(tag, seed, widths=None):
+    from fpl_plus_torch.models.registry import NETS_3D, create_network
+    net_type, extra = ZOO[tag]
+    cfg = dict(ZOO_CFG, net_type=net_type, **extra)
+    if widths is not None:
+        cfg['feature_chns'] = widths
+    net = create_network(cfg)
+    init_random_(net, seed)
+    window = ZOO_WINDOW_3D if net_type in NETS_3D else WINDOW
+    return net, cfg, list(window)
+
+
+def heads_agree(got, want):
+    """Max abs err over the heads and the tolerance of phase 3."""
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return err, FWD_TOL * max(1.0, scale)
+
+
+def zoo_phase(dev):
+    """(18) Each network of the zoo: card vs CPU at small width (TF32 off,
+    one state dict), then one eval forward of BATCH windows at full width
+    (2D nets: [28,128,128] windows folded to 8 x 28 slices; 3D nets:
+    [32,128,128]), timed by CUDA events (median of ZOO_REPS after a
+    warm-up that counts the MACs), with its peak device memory. None may
+    launch the DSBN+PReLU kernel."""
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+    results = {}
+    for i, tag in enumerate(ZOO):
+        small, _, window = zoo_net(tag, SEED + 20 + i, ZOO_SMALL)
+        small.eval()
+        gen = torch.Generator().manual_seed(SEED + 40 + i)
+        xs = torch.randn((2, 1, window[0] // 2, 64, 64), generator=gen)
+        with tf32_off(), torch.inference_mode():
+            want = as_list(small(xs))
+            got = as_list(copy.deepcopy(small).to(dev)(xs.to(dev)))
+        err, tol = heads_agree(got, want)
+        check(err <= tol, '{0} card vs CPU max abs err {1} > {2}'.format(
+            tag, err, tol))
+        net, _, window = zoo_net(tag, SEED + 60 + i)
+        net = net.to(dev).eval()
+        x = torch.randn((BATCH, 1) + tuple(window), generator=gen).to(dev)
+        with torch.inference_mode():
+            with counting_macs(net) as macs:
+                out = as_list(net(x))
+            torch.cuda.synchronize()
+            check(len(out) == ZOO_HEADS.get(tag, (1, 1))[0]
+                  and all(bool(torch.isfinite(o).all()) for o in out)
+                  and out[0].shape[2:] == x.shape[2:],
+                  '{0} outputs {1}'.format(tag, [o.shape for o in out]))
+            del out
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = []
+            for _ in range(ZOO_REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                net(x)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        gmac = macs[0] / BATCH / 1e9
+        med = float(np.median(ms))
+        results[tag] = {'gmac_per_window': gmac, 'ms': med, 'ms_all': ms,
+                        'peak_gib': peak, 'small_err': err,
+                        'small_tol': tol}
+        print('zoo {0}: card vs CPU at widths {1} max abs err {2:.3g} '
+              '(tolerance {3:.3g}); full width, {4} windows of {5}: {6:.3f} '
+              'GMAC per window, eval forward median {7:.2f} ms (min {8:.2f}, '
+              'max {9:.2f}), {10:.1f} TFLOP/s, peak {11:.2f} GiB'.format(
+                  tag, ZOO_SMALL, err, tol, BATCH, window, gmac, med,
+                  min(ms), max(ms), 2 * macs[0] / med / 1e9, peak))
+        del net, x, small
+        torch.cuda.empty_cache()
+    check(dsbn_prelu.launches == before, 'the zoo launched the DSBN+PReLU '
+          'kernel {0} times'.format(dsbn_prelu.launches - before))
+    return results
+
+
+def zoo_train_phase(dev, zoo):
+    """(19) One single-domain training run of 3 steps per zoo net (the
+    CLI's default step: alternating with the entropy term), batch 4 crops
+    of its window, Adam, the network's dropout from a card generator: the
+    median CUDA-event ms of steps 2-3 and the peak device memory. The
+    deep-supervised nets run DeepSuperviseLoss over DiceLoss; DualBranch,
+    CCT and URPC hand the loss their train-mode lists; AEs learns to
+    reconstruct its input (MSE, no softmax, no entropy term)."""
+    from fpl_plus_torch.engine.optim import create_optimizer
+    from fpl_plus_torch.engine.train import AlternatingTrainStep
+    from fpl_plus_torch.losses import create_loss_calculator
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+    results = {}
+    for i, tag in enumerate(ZOO_TRAIN):
+        net, cfg, window = zoo_net(tag, SEED + 80 + i)
+        net = net.to(dev).train()
+        gen = torch.Generator().manual_seed(SEED + 100 + i)
+        x = torch.randn((TRAIN_BATCH, 1) + tuple(window), generator=gen)
+        aes = tag == 'AEs'
+        if aes:
+            train_cfg = {'loss_type': 'MSELoss', 'loss_softmax': False}
+            label = x
+        else:
+            train_cfg = {'loss_type': 'DiceLoss'}
+            label = F.one_hot((x[:, 0] > 0.5).long(), 2).movedim(-1, 1)
+        batch = {'image': x.to(dev), 'label_prob': label.float().to(dev)}
+        opt_cfg = {'optimizer': 'Adam', 'learning_rate': 1e-4,
+                   'weight_decay': 0.0}
+        step = AlternatingTrainStep(
+            net, create_loss_calculator({'training': train_cfg,
+                                         'network': cfg}),
+            create_optimizer(opt_cfg, net.parameters()), num_domains=1,
+            entropy_coeff=0.0 if aes else 1.0)
+        heads = []
+        hook = net.register_forward_hook(
+            lambda m, a, o: heads.append(len(as_list(o))))
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for k in range(3):
+            gens = [[torch.Generator(dev).manual_seed(SEED + 7 * k + i)]]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step([batch], gens)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m['loss']))
+        hook.remove()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(all(np.isfinite(losses)), '{0} losses {1}'.format(tag, losses))
+        check(heads == [ZOO_HEADS.get(tag, (1, 1))[1]] * 3,
+              '{0} train-mode heads {1}'.format(tag, heads))
+        med = float(np.median(ms[1:]))
+        tflop = 3 * 2 * zoo[tag]['gmac_per_window'] * TRAIN_BATCH / 1e3
+        results[tag] = {'ms': med, 'ms_all': ms, 'peak_gib': peak,
+                        'tflop': tflop, 'losses': losses}
+        print('zoo train {0}: batch {1} crops {2}, step {3:.2f} ms (median '
+              'of steps 2-3; all {4}), {5:.3f} TFLOP per step, {6:.1f} '
+              'TFLOP/s, peak {7:.2f} GiB, {8} heads to the loss, losses {9}'
+              .format(tag, TRAIN_BATCH, window, med,
+                      ['{0:.1f}'.format(t) for t in ms], tflop,
+                      tflop / med * 1e3, peak, heads[0],
+                      ['{0:.4f}'.format(v) for v in losses]))
+        del step, net, batch
+        torch.cuda.empty_cache()
+    check(dsbn_prelu.launches == before, 'the zoo training launched the '
+          'DSBN+PReLU kernel')
+    return results
+
+
+SUP_CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+train_csv = {root}/d1_train.csv
+valid_csv = {root}/d1_valid.csv
+test_csv = {root}/target_test.csv
+train_batch_size = 2
+train_transform = [NormalizeWithPercentiles, RandomRescale, RandomRotate, GammaCorrection, GaussianNoise, Pad, RandomCrop, RandomFlip, LabelToProbability]
+valid_transform = [NormalizeWithPercentiles, Pad, LabelToProbability]
+test_transform = [NormalizeWithPercentiles, Pad]
+NormalizeWithPercentiles_channels = [0]
+NormalizeWithPercentiles_percentile_lower = 0.5
+NormalizeWithPercentiles_percentile_upper = 99.5
+RandomRescale_lower_bound = [1.0, 0.9, 0.9]
+RandomRescale_upper_bound = [1.0, 1.1, 1.1]
+RandomRotate_angle_range_d = [-15, 15]
+RandomRotate_angle_range_h = None
+RandomRotate_angle_range_w = None
+GammaCorrection_channels = [0]
+GammaCorrection_gamma_min = 0.8
+GammaCorrection_gamma_max = 1.25
+GaussianNoise_channels = [0]
+GaussianNoise_mean = 0.0
+GaussianNoise_std = 0.05
+Pad_output_size = [28, 128, 128]
+RandomCrop_output_size = [28, 128, 128]
+RandomCrop_foreground_focus = True
+RandomCrop_foreground_ratio = 0.5
+RandomCrop_mask_label = [1]
+RandomFlip_flip_depth = False
+RandomFlip_flip_height = True
+RandomFlip_flip_width = True
+
+[network]
+net_type = UNet2D
+class_num = 2
+in_chns = 1
+feature_chns = [32, 64, 128, 256, 512]
+dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
+deep_supervise = True
+
+[training]
+loss_type = DiceLoss
+optimizer = Adam
+learning_rate = 1e-4
+momentum = 0.9
+weight_decay = 1e-5
+lr_scheduler = MultiStepLR
+lr_gamma = 0.5
+lr_milestones = [5]
+iter_max = 4
+iter_valid = 2
+iter_save = 2
+random_seed = 3
+ckpt_save_dir = {root}/model/sup
+
+[testing]
+ckpt_mode = 0
+output_dir = {root}/out_sup
+sliding_window_enable = True
+sliding_window_size = [28, 128, 128]
+sliding_window_stride = [28, 128, 128]
+tta_mode = 1
+patch_chunk = 2
+{evaluation}
+"""
+URPC_VOLUME = (8, 80, 88)
+URPC_SW = {'sliding_window_enable': True, 'sliding_window_size': [4, 32, 32],
+           'sliding_window_stride': [3, 24, 24], 'tta_mode': 1,
+           'output_mode': 'logits'}
+
+
+def supervised_phase(root, dev):
+    """(20) ``cli train`` of a single-domain deep-supervised UNet2D at full
+    width (4 iterations, validation and checkpoints every 2, the new
+    transforms in its chain; the phase-13 workspace's domain-1 manifests),
+    the auto test stage on the phase-4 volumes and ``eva_main``; then the
+    Inferer with a UNet2D_URPC predictor (4 heads) card vs CPU at small
+    width, under both ``multiscale_counter`` modes (TF32 off)."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.engine.infer import Inferer
+    from fpl_plus_torch.engine.train import AlternatingTrainStep
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    cfg = os.path.join(root, 'sup.cfg')
+    with open(cfg, 'w') as f:
+        f.write(SUP_CFG.format(root=root,
+                               evaluation=EVAL_SECTION.format(root=root)))
+    step_ms, valid_ms, eval_s = [], [], []
+    with timed_method(AlternatingTrainStep, '__call__', step_ms), \
+            timed_method(SegmentationAgent, 'validation', valid_ms), \
+            timed_function(cli, 'eva_main', eval_s):
+        dsbn_prelu.launches = 0          # this path's count starts here
+        t0 = time.perf_counter()
+        rc = cli.main(['train', cfg])
+        wall = time.perf_counter() - t0
+        launches = dsbn_prelu.launches
+    check(rc == 0 and launches == 0, 'supervised run rc {0}, {1} kernel '
+          'launches'.format(rc, launches))
+    ckpt_dir = os.path.join(root, 'model', 'sup')
+    check(len(step_ms) == 4 and all(os.path.isfile(os.path.join(
+        ckpt_dir, 'sup_{0}.pt'.format(it))) for it in (2, 4)),
+        'supervised steps {0} / checkpoints'.format(len(step_ms)))
+    with open(os.path.join(ckpt_dir, 'scalars.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r[k] for r in recs if r['tag'] == 'loss'
+              for k in ('train', 'valid')]
+    wait = [r['value'] for r in recs if r['tag'] == 'host_wait']
+    check(len(losses) == 4 and all(np.isfinite(losses)),
+          'supervised losses {0}'.format(losses))
+    seg = os.path.join(root, 'out_sup', 'sup_target_test')
+    labels = sorted(n for n in os.listdir(seg) if n.endswith('.nii.gz'))
+    check(len(labels) == N_VOLUMES, 'supervised labels {0}'.format(labels))
+    dice = read_csv(os.path.join(seg, 'test_block_dice_all.csv'))
+    check(len(dice) == N_VOLUMES + 3 and all(
+        np.isfinite(float(r[1])) for r in dice[1:]), 'dice {0}'.format(dice))
+    print('supervised cli train (UNet2D, deep supervision, full width): {0} '
+          'steps at {1} ms, validation {2} ms ({3} volumes each), host wait '
+          '{4} s per iteration, losses {5}, eva_main {6:.2f} s, dice {7}, '
+          '{8} kernel launches, {9:.1f} s wall'.format(
+              len(step_ms), ['{0:.1f}'.format(t) for t in step_ms],
+              ['{0:.1f}'.format(t) for t in valid_ms], N_VOLUMES,
+              ['{0:.4f}'.format(w) for w in wait],
+              ['{0:.4f}'.format(v) for v in losses], sum(eval_s),
+              dice[-2][1], launches, wall))
+
+    net, _, _ = zoo_net('UNet2D_URPC', SEED + 120, ZOO_SMALL)
+    net.eval()
+    net_dev = copy.deepcopy(net).to(dev)
+    image = np.random.RandomState(SEED).normal(
+        size=(1, 1) + URPC_VOLUME).astype(np.float32)
+    urpc = {}
+    for mode in ('exact', 'reference'):
+        conf = dict(URPC_SW, multiscale_counter=mode)
+        with tf32_off():
+            got = Inferer(conf, dev).run(lambda x: net_dev(x), image)
+            want = Inferer(conf, 'cpu').run(lambda x: net(x), image)
+        err, tol = heads_agree([torch.from_numpy(g) for g in got],
+                               [torch.from_numpy(w) for w in want])
+        shapes = [list(g.shape[2:]) for g in got]
+        check(len(got) == 4 and err <= tol, 'URPC Inferer {0}: {1} heads, '
+              'max abs err {2} > {3}'.format(mode, len(got), err, tol))
+        urpc[mode] = {'err': err, 'tol': tol, 'shapes': shapes}
+        print('URPC Inferer {0} counter, card vs CPU (widths {1}, volume {2}, '
+              'window {3} stride {4}): heads {5}, max abs err {6:.3g} '
+              '(tolerance {7:.3g})'.format(
+                  mode, ZOO_SMALL, list(URPC_VOLUME),
+                  URPC_SW['sliding_window_size'],
+                  URPC_SW['sliding_window_stride'], shapes, err, tol))
+    return {'step_ms': step_ms, 'valid_ms': valid_ms, 'eval_s': eval_s,
+            'host_wait_s': wait, 'losses': losses, 'launches': launches,
+            'wall_s': wall, 'urpc': urpc}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -1516,6 +1879,9 @@ def main():
         variants = variants_phase(ws, fwd_per_volume)
         variant_check = variant_check_phase(dev)
         paths = test_paths_phase(ws, names, serving, fpl)
+        zoo = zoo_phase(dev)
+        zoo_train = zoo_train_phase(dev, zoo)
+        supervised = supervised_phase(ws, dev)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -1567,6 +1933,18 @@ def main():
         print('variant {0} summary: step {1:.2f} ms (the second step), peak '
               '{2:.2f} GiB, {3} updates'.format(tag, r['step_ms'][-1],
                                                 r['peak_gib'], r['updates']))
+    for tag, r in zoo.items():
+        t = zoo_train.get(tag)
+        print('zoo summary {0}: {1:.3f} GMAC per window, eval forward {2:.2f} '
+              'ms (8 windows), peak {3:.2f} GiB{4}'.format(
+                  tag, r['gmac_per_window'], r['ms'], r['peak_gib'],
+                  '' if t is None else '; train step {0:.2f} ms, peak {1:.2f} '
+                  'GiB'.format(t['ms'], t['peak_gib'])))
+    print('supervised summary: step median {0:.2f} ms after the first, '
+          'validation median {1:.2f} ms per volume, eva_main {2:.2f} s'
+          .format(float(np.median(supervised['step_ms'][1:])),
+                  float(np.median(supervised['valid_ms'])) / N_VOLUMES,
+                  sum(supervised['eval_s'])))
     print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
           '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
           'card vs CPU gradient max rel err {5:.3g}'.format(
@@ -1618,6 +1996,7 @@ def main():
                                     if isinstance(r, dict)},
         'eval_s_per_volume': evaluation['s_per_volume'],
         'distance_s': evaluation['distance_s'],
+        'supervised_cli_launches': supervised['launches'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -14,8 +14,9 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   io/          NIfTI codec + CSV-manifest datasets (caches, FPL+ weights),
                loader, prefetch (L1)
   transforms/  sample-dict transform pipeline with recorded inverses (L2)
-  models/      torch networks incl. DSBN variants (L3)
-  losses/      Dice, weighted Dice, cross-entropy, combined (L4)
+  models/      torch networks: UNet2D5 with DSBN, the UNet2D and UNet3D
+               families, AEs, the discriminator (L3)
+  losses/      the segmentation losses, combined and deep supervision (L4)
   engine/      the DSBN train steps (joint with accumulation, alternating,
                dual consistency, discriminator), optimizers and schedules,
                sliding-window inference, folded MC-dropout passes and the
@@ -33,16 +34,16 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
 
-Ported so far: on UNet2D5_dsbn / UNet2D5, the training stage in all the
-segmentation agent's variants (joint with gradient accumulation,
-alternating with the entropy term, the discriminator, dual consistency;
-Adam, ``.pt`` checkpoints, resume, in-training validation), the test
-stages — pseudo labels (sliding window + flip TTA, batched serving,
-checkpoint ensembles, inverse transforms on the device or the host,
-post-processing) and the FPL MC-dropout uncertainty pass — the evaluation
-reports and the FPL weight tools. The other agents, networks, losses and
-transforms, the loader's worker pool and scale-out are queued in
-ROADMAP.md.
+Ported so far: the training stage in all the segmentation agent's
+variants (joint with gradient accumulation, alternating with the entropy
+term, the discriminator, dual consistency; Adam, ``.pt`` checkpoints,
+resume, in-training validation), the test stages — pseudo labels (sliding
+window + flip TTA, multi-head outputs, batched serving, checkpoint
+ensembles, inverse transforms on the device or the host, post-processing)
+and the FPL MC-dropout uncertainty pass — the evaluation reports, the FPL
+weight tools, and every network, segmentation loss and transform of the
+JAX package's registries. The other agents, the loader's worker pool and
+scale-out are queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

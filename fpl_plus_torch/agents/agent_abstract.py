@@ -63,9 +63,7 @@ class NetRunAgent(ABC):
         transform_list = []
         for name in names:
             if name not in TransformDict:
-                raise NotImplementedError(
-                    'transform {0} is not ported (ported: {1})'.format(
-                        name, sorted(TransformDict)))
+                raise ValueError('Undefined transform {0}'.format(name))
             transform_list.append(TransformDict[name](params))
         if stage_key == 'test':
             self.transform_list = transform_list

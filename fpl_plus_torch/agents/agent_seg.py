@@ -95,7 +95,7 @@ from fpl_plus_torch.engine.optim import (PlateauScheduler, create_lr_schedule,
 from fpl_plus_torch.engine.train import (AlternatingTrainStep,
                                          DiscriminatorStep,
                                          DualConsistencyStep, JointTrainStep,
-                                         train_dice)
+                                         primary_head, train_dice)
 from fpl_plus_torch.io.image_io import save_nd_array_as_image
 from fpl_plus_torch.io.loader import prefetch_iter, repeat_loader
 from fpl_plus_torch.losses import create_loss_calculator
@@ -219,6 +219,14 @@ def _to_device(tree, device):
     return type(tree)(_to_device(v, device) for v in tree)
 
 
+def head_predictor(module: torch.nn.Module, domain_label: int):
+    """The test stage's predictor: the network's primary head (``out[0]``
+    of a multi-head network, as the JAX agent's ``_patch_forward``)."""
+    def predict(x, dropout_generators=None):
+        return primary_head(module(x, domain_label, dropout_generators))
+    return predict
+
+
 def init_dis(dis: torch.nn.Module, seed: int) -> torch.nn.Module:
     """torch's default convolution initialisation (kaiming-uniform weights
     with a = sqrt(5), uniform biases within 1/sqrt(fan_in)) drawn from a
@@ -257,9 +265,11 @@ class SegmentationAgent(NetRunAgent):
     # -- training -----------------------------------------------------------
     def _train_generators(self, iteration: int, tails):
         """One list with one dropout generator per forward of ``iteration``
-        (None when the network has no dropout), forward k seeded from
-        ``SeedSequence([random_seed, iteration, *tails[k]])``."""
-        if not any(self.config['network'].get('dropout', [])):
+        (None when the network has no dropout and draws nothing else in
+        train mode), forward k seeded from ``SeedSequence([random_seed,
+        iteration, *tails[k]])``."""
+        if not (any(self.config['network'].get('dropout', []))
+                or getattr(self.module, 'draws_in_train', False)):
             return [None] * len(tails)
         return [[torch.Generator(self.device).manual_seed(int(
             np.random.SeedSequence([int(self.random_seed), iteration, *t])
@@ -539,7 +549,12 @@ class SegmentationAgent(NetRunAgent):
         """Per-domain whole-volume validation through the Inferer
         (reference :509-604) with the training module in eval mode. The
         volume is rounded per ``[testing] precision`` as the Inferer does
-        and the network computes in f32 (the module is never cast)."""
+        and the network computes in f32 (the module is never cast). A
+        multi-head network's heads all go through the Inferer: the loss gets
+        the list, so a deep-supervision loss applies, and the dice the
+        primary head (the JAX agent's validation predictor keeps the first
+        head only, on which its deep-supervision loss raises: ROADMAP.md,
+        section 3)."""
         if self.inferer is None:
             self.inferer = Inferer(dict(self.config['testing'],
                                         output_mode='logits'), self.device)
@@ -563,7 +578,7 @@ class SegmentationAgent(NetRunAgent):
                             y = label_prob[i:i + 1]
                             losses.append(self._valid_loss(
                                 {'prediction': pred, 'ground_truth': y}))
-                            dices.append(train_dice(pred, y))
+                            dices.append(train_dice(primary_head(pred), y))
                 per_domain.append((float(torch.stack(losses).mean()),
                                    torch.stack(dices).mean(0).cpu().numpy()))
         finally:
@@ -660,7 +675,7 @@ class SegmentationAgent(NetRunAgent):
                                                         domain_label)
         module = self._loaded_module(ckpt_name)
         label_inf, logits_inf = self._inferers()
-        predictor = functools.partial(module, domain_label=domain_label)
+        predictor = head_predictor(module, domain_label)
 
         def margins_of(data, dim):
             return self._selection_margins(data, dim) if device_label \
@@ -745,8 +760,8 @@ class SegmentationAgent(NetRunAgent):
                 t0 = time.time()
                 with torch.inference_mode():
                     logits = torch.stack([logits_inf.run_logits(
-                        functools.partial(m, domain_label=domain_label),
-                        images) for m in modules]).mean(0)
+                        head_predictor(m, domain_label), images)
+                        for m in modules]).mean(0)
                 data['predict'] = logits.cpu().numpy()
                 self.save_outputs(self._host_inverse(data))
                 infer_times.append(time.time() - t0)

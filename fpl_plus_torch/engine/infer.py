@@ -29,19 +29,30 @@ plain Python around device work.
 * Division, un-flip averaging and the output head (logits, softmax or
   argmax) run on the device; only the result crosses back. The FPL pass
   crosses back two scalars.
+* A predictor that returns a list (a multi-head network) gets every head
+  accumulated on its own scaled grid (the JAX package's ``engine/infer.py``
+  ``_sliding_window_jit``, reference infer_func.py:31-48,113-140): head i,
+  whose window output is ``win_i``, has the full-volume shape
+  ``floor(img * win_i / window)`` and window starts ``s * win_i // window``.
+  Its overlap counter is its own exact coverage (``[testing]
+  multiscale_counter = exact``, the default), or, with ``reference`` and
+  more than one head, the reference's: the main head's full-resolution
+  counter, nearest-resized to the head's shape and times the number of
+  heads (``_overlap_divide`` there). The results are then lists, one entry
+  per head; the FPL reduction reads the main head.
 
-Single-head networks only. The JAX package's XLA compile devices (shape
-bucketing, unrolled vs scanned accumulation, window placement, the device
-mesh) change no value — bucketing is exact by construction, the rest are
-schedules — so their ``[testing]`` keys are accepted and ignored; the last
-chunk of the grid may simply be shorter than ``patch_chunk``.
+The JAX package's XLA compile devices (shape bucketing, unrolled vs scanned
+accumulation, window placement, the device mesh) change no value --
+bucketing is exact by construction, the rest are schedules -- so their
+``[testing]`` keys are accepted and ignored; the last chunk of the grid may
+simply be shorter than ``patch_chunk``.
 
 Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
 W = -1.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,20 +120,35 @@ def _unflip_mean(outputs: torch.Tensor, n: int, tta: bool) -> torch.Tensor:
     return sum(un) / len(un)
 
 
-def _coverage(dim_starts, window, img_shape) -> torch.Tensor:
-    """Closed-form overlap counter ``[*img]``: the outer product of per-dim
-    coverage vectors, exactly the accumulated count of windows covering
-    each voxel."""
+def _coverage(dim_starts, window, head_window, out_shape) -> np.ndarray:
+    """Closed-form overlap counter ``[*out_shape]`` of a head whose window
+    output is ``head_window`` (its starts scale by ``head_window /
+    window``): the outer product of per-dim coverage vectors, exactly the
+    accumulated count of windows covering each voxel."""
     vecs = []
     for d, starts in enumerate(dim_starts):
-        cov = np.zeros(img_shape[d], np.float32)
+        cov = np.zeros(out_shape[d], np.float32)
         for s in starts:
-            cov[s:s + window[d]] += 1.0
+            s0 = s * head_window[d] // window[d]
+            cov[s0:s0 + head_window[d]] += 1.0
         vecs.append(cov)
     c = vecs[0]
     for v in vecs[1:]:
         c = c[..., None] * v
-    return torch.from_numpy(c)
+    return c
+
+
+def _nearest_resize(c: np.ndarray, out_shape) -> np.ndarray:
+    """Nearest-neighbour resize (source index ``floor(i * in / out)``, torch
+    ``F.interpolate`` nearest) of a counter to ``out_shape``."""
+    idx = [(np.arange(o) * i) // o for i, o in zip(c.shape, out_shape)]
+    return c[np.ix_(*idx)]
+
+
+def _box(start, size):
+    """The ``[:, :, start:start+size]`` window index of ``[B, K, *img]``."""
+    return (slice(None), slice(None)) + tuple(
+        slice(s, s + w) for s, w in zip(start, size))
 
 
 def _finalize(out: torch.Tensor, output_mode: str) -> torch.Tensor:
@@ -177,7 +203,8 @@ class Inferer:
     ``image``: numpy ``[1, C, *img]``. ``run`` returns numpy
     ``[1, K, *img]`` f32 for 'logits'/'prob' and ``[1, *img]`` uint8 for
     'label'/'packed_label'; ``run_batch`` and ``run_passes`` return the
-    same with a leading ``[N]``.
+    same with a leading ``[N]``. A predictor that returns a list of heads
+    gets a list of such results, one per head.
     """
 
     def __init__(self, config: dict, device, patch_chunk: int = 2):
@@ -196,6 +223,10 @@ class Inferer:
         # 'bfloat16': the volume is cast on the host (round to nearest
         # even) and all patch activations follow; accumulators stay f32
         self.compute_dtype = resolve_dtype(config.get('precision', 'float32'))
+        self.counter_mode = config.get('multiscale_counter', 'exact')
+        if self.counter_mode not in ('exact', 'reference'):
+            raise ValueError('Undefined multiscale_counter {0}'.format(
+                self.counter_mode))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
@@ -232,45 +263,51 @@ class Inferer:
         return use_sw and not all(w >= s for w, s in zip(window, img_shape))
 
     @staticmethod
-    def _forward(predictor: Callable, x: torch.Tensor) -> torch.Tensor:
+    def _forward(predictor: Callable, x: torch.Tensor) -> List[torch.Tensor]:
+        """The predictor's heads as a list of f32 tensors."""
         out = predictor(x)
-        if isinstance(out, (tuple, list)):
-            raise NotImplementedError(
-                'multi-head networks are not yet ported to the Inferer')
-        return out.float()
+        heads = list(out) if isinstance(out, (tuple, list)) else [out]
+        return [h.float() for h in heads]
 
     def _sliding_window(self, predictor, variants, window, stride):
-        """Overlap-averaged ``[N*V, K, *img]`` f32 over the clamped grid."""
+        """Overlap-averaged ``[N*V, K, *img_i]`` f32 per head over the
+        clamped grid."""
         img_shape = tuple(variants.shape[2:])
         starts = window_grid(img_shape, window, stride)
         chunk = min(self.patch_chunk, len(starts))
         v = variants.shape[0]
-        lead = (slice(None), slice(None))
-        out = None
+        outs = wins = None
         for i in range(0, len(starts), chunk):
-            boxes = [lead + tuple(slice(s, s + w) for s, w in zip(st, window))
-                     for st in starts[i:i + chunk].tolist()]
-            patches = torch.stack([variants[b] for b in boxes], 1)
-            pred = self._forward(predictor, patches.flatten(0, 1))
-            if tuple(pred.shape[2:]) != tuple(window):
-                raise NotImplementedError(
-                    'heads at another scale than the window are not yet '
-                    'ported')
-            pred = pred.reshape((v, len(boxes)) + pred.shape[1:])
-            if out is None:
-                out = torch.zeros((v, pred.shape[2]) + img_shape,
-                                  dtype=torch.float32, device=self.device)
-            for j, b in enumerate(boxes):
-                out[b] += pred[:, j]
-        cnt = _coverage(dim_start_lists(img_shape, window, stride), window,
-                        img_shape).to(self.device)
-        return out / torch.clamp_min(cnt, 1e-6)
+            sts = starts[i:i + chunk].tolist()
+            patches = torch.stack([variants[_box(st, window)] for st in sts],
+                                  1)
+            preds = self._forward(predictor, patches.flatten(0, 1))
+            if outs is None:
+                wins = [tuple(p.shape[2:]) for p in preds]
+                outs = [torch.zeros(
+                    (v, p.shape[1]) + tuple(img_shape[d] * w[d] // window[d]
+                                            for d in range(len(w))),
+                    dtype=torch.float32, device=self.device)
+                    for p, w in zip(preds, wins)]
+            for out, pred, win in zip(outs, preds, wins):
+                pred = pred.reshape((v, len(sts)) + pred.shape[1:])
+                for j, st in enumerate(sts):
+                    s0 = [s * w // n for s, w, n in zip(st, win, window)]
+                    out[_box(s0, win)] += pred[:, j]
+        dim_starts = dim_start_lists(img_shape, window, stride)
+        cnts = [_coverage(dim_starts, window, win, o.shape[2:])
+                for win, o in zip(wins, outs)]
+        if self.counter_mode == 'reference' and len(outs) > 1:
+            cnts = [len(outs) * _nearest_resize(cnts[0], o.shape[2:])
+                    for o in outs]
+        return [o / torch.clamp_min(torch.from_numpy(c).to(self.device),
+                                    1e-6) for o, c in zip(outs, cnts)]
 
     def _dev(self, predictor: Callable, images: np.ndarray,
-             copies: int = 1) -> torch.Tensor:
-        """Device logits ``[N, K, *img]`` f32 of ``images [N, C, *img]``
-        (``copies`` > 1: N = ``copies`` passes over one volume), TTA and
-        overlap averaging done, before the output head."""
+             copies: int = 1) -> List[torch.Tensor]:
+        """Device logits ``[N, K, *img_i]`` f32 per head of ``images [N, C,
+        *img]`` (``copies`` > 1: N = ``copies`` passes over one volume), TTA
+        and overlap averaging done, before the output head."""
         tta = self._tta()
         img_shape = tuple(images.shape[2:])
         _, window, stride = self._resolve_sw(img_shape)
@@ -279,7 +316,8 @@ class Inferer:
             # whole-volume path: reflect-pad spatial dims to a multiple of
             # the network's total downsampling factor so odd sizes survive
             # the encoder/decoder; padded before the flip variants so
-            # un-flipping stays aligned, cropped after
+            # un-flipping stays aligned, cropped after (each head by its
+            # own scale)
             mult = self.config.get('infer_autopad_multiple', 16)
             pads = [(-s) % mult for s in img_shape]
             if any(pads):
@@ -291,32 +329,43 @@ class Inferer:
         n = vols.shape[0]
         variants = _make_variants(vols, tta)
         if windowed:
-            return _unflip_mean(
-                self._sliding_window(predictor, variants, window, stride),
-                n, tta)
-        out = _unflip_mean(self._forward(predictor, variants), n, tta)
-        return out[(slice(None), slice(None))
-                   + tuple(slice(0, s) for s in img_shape)]
+            return [_unflip_mean(o, n, tta) for o in self._sliding_window(
+                predictor, variants, window, stride)]
+        padded = variants.shape[2:]
+        return [_unflip_mean(o, n, tta)[(slice(None), slice(None)) + tuple(
+            slice(0, int(s * (o.shape[2 + d] / padded[d])))
+            for d, s in enumerate(img_shape))]
+            for o in self._forward(predictor, variants)]
 
-    def _host(self, out: torch.Tensor) -> np.ndarray:
-        return _finalize(out, self.output_mode).cpu().numpy()
+    @staticmethod
+    def _one(heads: List):
+        """A single head as itself, several as a list."""
+        return heads[0] if len(heads) == 1 else heads
+
+    def _host(self, heads: List[torch.Tensor]):
+        return self._one([_finalize(h, self.output_mode).cpu().numpy()
+                          for h in heads])
 
     @torch.inference_mode()
-    def run(self, predictor: Callable, image) -> np.ndarray:
-        return self._host(self.run_logits(predictor, image))
+    def run(self, predictor: Callable, image):
+        return self._host(self._run_dev(predictor, image))
 
     @torch.inference_mode()
-    def run_logits(self, predictor: Callable, image) -> torch.Tensor:
+    def run_logits(self, predictor: Callable, image):
         """``run`` before the output head, kept on the device: the
-        overlap- and TTA-averaged logits ``[1, K, *img]`` f32 (in-training
-        validation computes its loss and dice there)."""
+        overlap- and TTA-averaged logits ``[1, K, *img]`` f32 (a list for a
+        multi-head predictor; in-training validation computes its loss and
+        dice there)."""
+        return self._one(self._run_dev(predictor, image))
+
+    def _run_dev(self, predictor: Callable, image) -> List[torch.Tensor]:
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('inference processes one volume at a time')
         return self._dev(predictor, image)
 
     @torch.inference_mode()
-    def run_batch(self, predictor: Callable, images) -> np.ndarray:
+    def run_batch(self, predictor: Callable, images):
         """Batched serving: N same-shape volumes ``[N, C, *img]`` through
         one sliding window whose forwards carry every volume's windows.
         Voxel-identical to N ``run`` calls up to the convolution library's
@@ -328,12 +377,13 @@ class Inferer:
         if n == 0:
             raise ValueError('run_batch needs at least one volume')
         if n == 1 or not self._windowed(images.shape[2:]):
-            return np.concatenate([self.run(predictor, images[i:i + 1])
-                                   for i in range(n)], 0)
+            per = [self._run_dev(predictor, images[i:i + 1])
+                   for i in range(n)]
+            return self._host([torch.cat(h, 0) for h in zip(*per)])
         return self._host(self._dev(predictor, images))
 
     def _passes_dev(self, group_predictor: Callable, image,
-                    n_passes: int) -> torch.Tensor:
+                    n_passes: int) -> List[torch.Tensor]:
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('run_passes folds passes over one volume')
@@ -341,7 +391,7 @@ class Inferer:
 
     @torch.inference_mode()
     def run_passes(self, group_predictor: Callable, image,
-                   n_passes: int) -> np.ndarray:
+                   n_passes: int):
         """Fold ``n_passes`` stochastic passes over one volume into one
         batched inference. ``group_predictor`` treats its patch batch as
         ``n_passes`` contiguous groups, group i under pass i's randomness
@@ -359,7 +409,7 @@ class Inferer:
         ``(margin_lower, margin_upper)`` per spatial axis, the composed
         crop of the test chain's inverse transforms. The agent applies the
         ``1 if boundary < 50 else vars_sum / boundary`` rule."""
-        out = self._passes_dev(group_predictor, image, n_passes)
+        out = self._passes_dev(group_predictor, image, n_passes)[0]
         dim = out.dim() - 2
         lo, up = margins if margins is not None else ([0] * dim, [0] * dim)
         return fpl_uncertainty_reduce(out, lo, up)

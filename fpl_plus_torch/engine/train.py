@@ -48,6 +48,11 @@ classwise dice of the one-hot argmax per domain (``class_dice_{d}``).
   the affine terms and slope in f32 and choose per op, which is another
   policy.
 
+A multi-head network (deep supervision, DualBranch, URPC, CCT) returns a
+list: the loss gets the whole list, and the train dice, the entropy term,
+the consistency term and the discriminator the primary head ``out[0]``, as
+in the JAX package (``engine/train.py:95-106`` there).
+
 Metrics stay on the device; the caller converts them once per block.
 """
 from __future__ import annotations
@@ -73,6 +78,11 @@ def train_dice(logits: torch.Tensor, label_prob: torch.Tensor
     k = logits.shape[1]
     hard = F.one_hot(logits.argmax(1), k).to(torch.float32)
     return get_classwise_dice(hard.reshape(-1, k), reshape_to_2d(label_prob))
+
+
+def primary_head(out):
+    """The first head of a multi-head output, else the output itself."""
+    return out[0] if isinstance(out, (list, tuple)) else out
 
 
 def entropy_log2(logits: torch.Tensor) -> torch.Tensor:
@@ -110,28 +120,32 @@ class _Step:
     def _forward(self, params, x, domain, generators):
         if self.compute_dtype is None:
             return self.module(x, domain, generators)
-        return functional_call(self.module, params,
-                               (x.to(self.compute_dtype), domain),
-                               {'dropout_generators': generators}).float()
+        out = functional_call(self.module, params,
+                              (x.to(self.compute_dtype), domain),
+                              {'dropout_generators': generators})
+        if isinstance(out, (list, tuple)):
+            return [o.float() for o in out]
+        return out.float()
 
     def _domain_loss(self, params, batch: Batch, domain: int,
                      generators: Generators):
-        """(loss, logits) of one train-mode domain forward."""
+        """(loss, primary-head logits) of one train-mode domain forward."""
         out = self._forward(params, batch['image'], domain, generators)
         loss_input = {'prediction': out, 'ground_truth': batch['label_prob']}
         if self.fpl_uda and 'pixel_weight' in batch:
             loss_input['pixel_weight'] = batch['pixel_weight']
             if 'image_weight' in batch:
                 loss_input['image_weight'] = batch['image_weight']
-        return self.loss_calculator(loss_input), out
+        return self.loss_calculator(loss_input), primary_head(out)
 
     def _eval_forward(self, params, x, domain):
         """An eval-mode (running statistics, no dropout), no-gradient
-        forward; the module returns to train mode."""
+        forward of the primary head; the module returns to train mode."""
         self.module.eval()
         try:
             with torch.no_grad():
-                return self._forward(params, x, domain, None).float()
+                return primary_head(self._forward(params, x, domain,
+                                                  None)).float()
         finally:
             self.module.train()
 
@@ -327,8 +341,9 @@ class DiscriminatorStep:
         self.module.eval()
         try:
             with torch.no_grad():
-                outs = [torch.softmax(self.module(b['image'], d).float(), 1)
-                        for d, b in enumerate(batches)]
+                outs = [torch.softmax(primary_head(
+                    self.module(b['image'], d)).float(), 1)
+                    for d, b in enumerate(batches)]
         finally:
             self.module.train()
         pred_real = self.dis(outs[0])

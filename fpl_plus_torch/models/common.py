@@ -63,6 +63,17 @@ def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
                          align_corners=True)
 
 
+def resize_linear(x: torch.Tensor, out_spatial) -> torch.Tensor:
+    """Half-pixel linear (bi/tri) resize of ``[N, C, *spatial]`` to
+    ``out_spatial`` (``align_corners=False``; an unchanged axis is the
+    identity). For the upsampling the deep-supervision heads need, this
+    equals ``jax.image.resize(..., 'linear')``: the edge weights there
+    renormalise to what the clamped source coordinate gives here."""
+    mode = 'trilinear' if x.dim() == 5 else 'bilinear'
+    return F.interpolate(x, size=tuple(out_spatial), mode=mode,
+                         align_corners=False)
+
+
 def fold_depth_to_batch(x: torch.Tensor):
     """[N, C, D, H, W] -> [N*D, C, H, W] (a transpose in NCDHW)."""
     n, c, d = x.shape[:3]

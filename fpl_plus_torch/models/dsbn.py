@@ -21,6 +21,12 @@ running_var/num_batches_tracked``; statistics are f32 buffers, eps 1e-5.
   input), so a bf16 forward normalises in f32 and rounds once; JAX rounds
   the affine terms to bf16 first.
 
+``BatchNorm`` is the plain one-bank BatchNorm of the other networks (the JAX
+package's ``models/dsbn.py:76-81``): the same f32 statistics, momentum and
+unbiased running variance, keys ``weight/bias/running_mean/running_var/
+num_batches_tracked``, and ``F.batch_norm`` in both modes (no fused kernel:
+its activation is LeakyReLU, applied by the caller).
+
 ``InstanceNorm`` (the discriminator's normalisation, the JAX package's
 ``models/dsbn.py:84-93``): per sample and channel over the spatial axes,
 biased variance, eps 1e-5, no affine terms and no running statistics; that
@@ -78,6 +84,25 @@ class DomainBatchNorm(nn.Module):
                          self.momentum, self.eps)
         bank.num_batches_tracked.add_(1)
         return F.prelu(y, prelu_alpha.to(y.dtype))
+
+
+class BatchNorm(_Bank):
+    """BatchNorm over the channel axis 1 of ``x [B, C, ...]``: batch
+    statistics and a running-statistics update in train mode, the running
+    statistics in eval mode."""
+    momentum = 0.1
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stats = self.running_mean.dtype
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight.to(stats), self.bias.to(stats),
+                            self.training, self.momentum, self.eps)
 
 
 class InstanceNorm(nn.InstanceNorm3d):

@@ -23,7 +23,8 @@ MC-dropout at test time one per pass.
 
 ``Dis`` is the output-space discriminator of the ``dis`` training variant
 (reference unet2d5_dsbn.py:190-215, the JAX package's
-``models/unet2d5_dsbn.py:213-231``).
+``models/unet2d5_dsbn.py:213-231``); ``AEs`` the 1x1x1-conv autoencoder
+stack of the same file (reference :216-236, JAX :234-249).
 """
 from __future__ import annotations
 
@@ -207,3 +208,26 @@ class Dis(nn.Module):
                 x = self.norms[i - 1](x)
             x = F.leaky_relu(x, 0.2)
         return self.out_conv(x)
+
+
+class AEs(nn.Module):
+    """1x1x1-conv autoencoder ``[N, in_chns, D, H, W] -> [N, in_chns, D, H,
+    W]``: convolutions to 64, 128, 64 and back to ``in_chns`` channels,
+    LeakyReLU 0.2 after the first three, InstanceNorm after the second and
+    third. ``conv{k}`` is flax's ``Conv_{k}``; the domain is ignored."""
+
+    def __init__(self, in_chns: int = 1):
+        super().__init__()
+        chns = [in_chns, 64, 128, 64, in_chns]
+        for k in range(4):
+            setattr(self, 'conv{0}'.format(k),
+                    nn.Conv3d(chns[k], chns[k + 1], 1))
+        self.norms = nn.ModuleList(InstanceNorm(c) for c in (128, 64))
+
+    def forward(self, x, domain_label: int = 0, dropout_generators=None):
+        for k in range(3):
+            x = getattr(self, 'conv{0}'.format(k))(x)
+            if k > 0:
+                x = self.norms[k - 1](x)
+            x = F.leaky_relu(x, 0.2)
+        return self.conv3(x)

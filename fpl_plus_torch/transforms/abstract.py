@@ -73,12 +73,15 @@ class AbstractTransform(object):
         return json.loads(raw)
 
 
-def apply_spatial(sample, fn, task):
+def apply_spatial(sample, fn, task, label_order0_fn=None):
     """Apply ``fn`` to sample['image'] and (for segmentation) to the other
-    spatial keys."""
+    spatial keys; ``label_order0_fn``, when given, replaces ``fn`` for the
+    label map (nearest-neighbour resampling)."""
     sample['image'] = fn(sample['image'])
     if task == 'segmentation':
-        for key in ('label', 'pixel_weight', 'image1'):
+        if 'label' in sample:
+            sample['label'] = (label_order0_fn or fn)(sample['label'])
+        for key in ('pixel_weight', 'image1'):
             if key in sample:
                 sample[key] = fn(sample[key])
     return sample

@@ -1,5 +1,5 @@
-"""Crop transforms: CenterCrop, CropWithBoundingBox and RandomCrop with
-foreground-focused sampling.
+"""Crop transforms: CenterCrop, CropWithBoundingBox, RandomCrop with
+foreground-focused sampling, and RandomResizedCrop.
 
 Behaviour parity: reference PyMIC/pymic/transform/crop.py:13-245 and the
 JAX package's ``transforms/crop.py``. Each crop keeps every image channel
@@ -23,6 +23,7 @@ import json
 import random
 
 import numpy as np
+from scipy import ndimage
 
 from fpl_plus_torch.transforms.abstract import AbstractTransform
 
@@ -193,3 +194,52 @@ class RandomCrop(CenterCrop):
                         for i in range(input_dim)]
         crop_max = [crop_min[i] + out_size[i] for i in range(input_dim)]
         return self._record(sample, crop_min, crop_max)
+
+
+class RandomResizedCrop(CenterCrop):
+    """2D random crop and resize (reference crop.py:246-320)."""
+
+    def __init__(self, params):
+        AbstractTransform.__init__(self, params)
+        self.output_size = self.param('output_size')
+        self.scale = self.param('scale')
+        self.ratio = self.param('ratio')
+        self.inverse = False
+
+    def cache_safe(self):
+        return False    # a random crop, scale and ratio
+
+    def inverse_transform_for_prediction(self, sample):
+        raise ValueError('RandomResizedCrop predictions cannot be pasted '
+                         'back (the crop is resized); disable its inverse')
+
+    def _crop_param(self, sample):
+        input_shape = sample['image'].shape
+        if len(input_shape) != 3 or len(self.output_size) != 2:
+            raise ValueError('RandomResizedCrop takes a 2D image and a 2D '
+                             'output_size')
+        scale = self.scale[0] + random.random() * (self.scale[1]
+                                                   - self.scale[0])
+        ratio = self.ratio[0] + random.random() * (self.ratio[1]
+                                                   - self.ratio[0])
+        crop_w = input_shape[-1] * scale
+        crop_h = min(crop_w * ratio, input_shape[-2])
+        out_shape = [int(crop_h), int(crop_w)]
+        crop_min = [random.randint(0, input_shape[i + 1] - out_shape[i])
+                    for i in range(2)]
+        crop_max = [crop_min[i] + out_shape[i] for i in range(2)]
+        return self._record(sample, crop_min, crop_max)
+
+    def __call__(self, sample):
+        crop_min, crop_max = self._crop_param(sample)
+        image = _crop(sample['image'], crop_min, crop_max)
+        zoom = [1.0] + [(self.output_size[i] + 0.0) / image.shape[1 + i]
+                        for i in range(2)]
+        sample['image'] = ndimage.zoom(image, zoom, order=1)
+        if self.task == 'segmentation':
+            for key, order in (('label', 0), ('pixel_weight', 1)):
+                if key in sample:
+                    cmax = [sample[key].shape[0]] + list(crop_max[1:])
+                    sample[key] = ndimage.zoom(
+                        _crop(sample[key], crop_min, cmax), zoom, order=order)
+        return sample

@@ -1,7 +1,8 @@
 """Intensity normalization (reference PyMIC/pymic/transform/normalize.py):
-per-channel z-score with optional non-positive-region randomization;
-``NormalizeWithMeanStd_dual`` normalises ``image1`` (the fake-source
-translation of the dual-consistency training) the same way."""
+per-channel z-score with optional non-positive-region randomization
+(``NormalizeWithMeanStd_dual`` normalises ``image1``, the fake-source
+translation of the dual-consistency training, the same way), min-max and
+percentile rescaling to [0, 1]."""
 from __future__ import annotations
 
 import numpy as np
@@ -60,4 +61,61 @@ class NormalizeWithMeanStd_dual(NormalizeWithMeanStd):
         sample = super().__call__(sample)
         if 'image1' in sample:
             sample['image1'] = self._normalize(sample['image1'])
+        return sample
+
+
+class NormalizeWithMinMax(AbstractTransform):
+    """Per channel: clip to [threshold_lower, threshold_upper] (the
+    channel's min and max where None) and rescale to [0, 1]."""
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.chns = self.param('channels')
+        self.thred_lower = self.param('threshold_lower')
+        self.thred_upper = self.param('threshold_upper')
+        self.inverse = self.param('inverse', False)
+
+    def cache_safe(self):
+        return True
+
+    def __call__(self, sample):
+        image = sample['image']
+        chns = self.chns if self.chns is not None else range(image.shape[0])
+        for i, chn in enumerate(chns):
+            img = image[chn]
+            v0, v1 = img.min(), img.max()
+            if self.thred_lower is not None and \
+                    self.thred_lower[i] is not None:
+                v0 = self.thred_lower[i]
+            if self.thred_upper is not None and \
+                    self.thred_upper[i] is not None:
+                v1 = self.thred_upper[i]
+            image[chn] = (np.clip(img, v0, v1) - v0) / (v1 - v0)
+        sample['image'] = image
+        return sample
+
+
+class NormalizeWithPercentiles(AbstractTransform):
+    """Per channel: clip to its [percentile_lower, percentile_upper]
+    percentiles and rescale to [0, 1]."""
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.chns = self.param('channels')
+        self.percent_lower = self.param('percentile_lower')
+        self.percent_upper = self.param('percentile_upper')
+        self.inverse = self.param('inverse', False)
+
+    def cache_safe(self):
+        return True
+
+    def __call__(self, sample):
+        image = sample['image']
+        chns = self.chns if self.chns is not None else range(image.shape[0])
+        for chn in chns:
+            img = image[chn]
+            v0 = np.percentile(img, self.percent_lower)
+            v1 = np.percentile(img, self.percent_upper)
+            image[chn] = (np.clip(img, v0, v1) - v0) / (v1 - v0)
+        sample['image'] = image
         return sample

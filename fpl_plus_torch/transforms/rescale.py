@@ -1,19 +1,23 @@
-"""Rescale with the input shape recorded.
+"""Rescale and RandomRescale with the input shape recorded.
 
 Behaviour parity: reference PyMIC/pymic/transform/rescale.py and the JAX
 package's ``transforms/rescale.py`` ``Rescale``: ``ndimage.zoom`` to
 ``output_size`` (a ``None`` depth keeps the depth; an int scales the
 shortest edge to it), order 1 for the image, ``pixel_weight`` and
-``image1``, order 0 for the label. The prediction inverse zooms the logits
-back to the recorded shape with order 1, on the host.
+``image1``, order 0 for the label. ``RandomRescale`` zooms each axis by a
+ratio drawn from ``random`` in [lower_bound, upper_bound) (per axis when the
+bounds are lists). The shape is recorded as ``<Name>_origin_shape``; the
+prediction inverse zooms the logits back to it with order 1, on the host.
 """
 from __future__ import annotations
 
+import functools
 import json
+import random
 
 from scipy import ndimage
 
-from fpl_plus_torch.transforms.abstract import AbstractTransform
+from fpl_plus_torch.transforms.abstract import AbstractTransform, apply_spatial
 
 
 class Rescale(AbstractTransform):
@@ -25,7 +29,10 @@ class Rescale(AbstractTransform):
             raise ValueError('Rescale_output_size must be an int or a list')
 
     def cache_safe(self):
-        return True
+        return type(self) is Rescale
+
+    def _shape_key(self):
+        return '{0}_origin_shape'.format(type(self).__name__)
 
     def _get_scale(self, input_shape):
         input_dim = len(input_shape) - 1
@@ -46,18 +53,13 @@ class Rescale(AbstractTransform):
     def __call__(self, sample):
         input_shape = sample['image'].shape
         scale = self._get_scale(input_shape)
-        sample['image'] = ndimage.zoom(sample['image'], scale, order=1)
-        sample['Rescale_origin_shape'] = json.dumps(list(input_shape))
-        if self.task == 'segmentation':
-            if 'label' in sample:
-                sample['label'] = ndimage.zoom(sample['label'], scale, order=0)
-            for key in ('pixel_weight', 'image1'):
-                if key in sample:
-                    sample[key] = ndimage.zoom(sample[key], scale, order=1)
-        return sample
+        sample[self._shape_key()] = json.dumps(list(input_shape))
+        return apply_spatial(
+            sample, functools.partial(ndimage.zoom, zoom=scale, order=1),
+            self.task, functools.partial(ndimage.zoom, zoom=scale, order=0))
 
     def inverse_transform_for_prediction(self, sample):
-        raw = sample['Rescale_origin_shape']
+        raw = sample[self._shape_key()]
         if isinstance(raw, (list, tuple)):
             raw = raw[0]
         origin_shape = json.loads(raw)
@@ -66,3 +68,21 @@ class Rescale(AbstractTransform):
                               zip(origin_shape[1:], pred.shape[2:])]
         sample['predict'] = ndimage.zoom(pred, scale, order=1)
         return sample
+
+
+class RandomRescale(Rescale):
+    def __init__(self, params):
+        AbstractTransform.__init__(self, params)
+        self.ratio0 = self.param('lower_bound')
+        self.ratio1 = self.param('upper_bound')
+        self.inverse = self.param('inverse', True)
+
+    def _get_scale(self, input_shape):
+        if isinstance(self.ratio0, (list, tuple)):
+            scale = [lo + random.random() * (hi - lo)
+                     for lo, hi in zip(self.ratio0, self.ratio1)]
+        else:
+            scale = [self.ratio0 + random.random() * (self.ratio1
+                                                      - self.ratio0)
+                     for _ in range(len(input_shape) - 1)]
+        return [1.0] + scale

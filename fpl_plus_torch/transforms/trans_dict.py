@@ -1,28 +1,50 @@
-"""Transform registry (parity with reference trans_dict.py:42-66), holding
-the transforms ported so far: the test chains (crop and non-crop
-inverses), the FPL+ training chain and its dual-image variants."""
+"""Transform registry (parity with reference trans_dict.py:42-66 and the
+JAX package's ``transforms/trans_dict.py``, the same 24 names)."""
 from __future__ import annotations
 
 from fpl_plus_torch.transforms.crop import (CenterCrop, CropWithBoundingBox,
-                                            RandomCrop)
+                                            RandomCrop, RandomResizedCrop)
 from fpl_plus_torch.transforms.flip import RandomFlip
-from fpl_plus_torch.transforms.label_convert import LabelToProbability
+from fpl_plus_torch.transforms.intensity import (GammaCorrection,
+                                                 GaussianNoise, GrayscaleToRGB)
+from fpl_plus_torch.transforms.label_convert import (
+    LabelConvert, LabelConvertNonzero, LabelToProbability,
+    PartialLabelToProbability, ReduceLabelDim)
 from fpl_plus_torch.transforms.normalize import (NormalizeWithMeanStd,
-                                                 NormalizeWithMeanStd_dual)
+                                                 NormalizeWithMeanStd_dual,
+                                                 NormalizeWithMinMax,
+                                                 NormalizeWithPercentiles)
 from fpl_plus_torch.transforms.pad import Pad, Pad_dual
-from fpl_plus_torch.transforms.rescale import Rescale
+from fpl_plus_torch.transforms.rescale import RandomRescale, Rescale
+from fpl_plus_torch.transforms.rotate import RandomRotate
+from fpl_plus_torch.transforms.threshold import (
+    ChannelWiseThreshold, ChannelWiseThresholdWithNormalize)
 
 TransformDict = {
-    'CenterCrop': CenterCrop,
+    'ChannelWiseThreshold': ChannelWiseThreshold,
+    'ChannelWiseThresholdWithNormalize': ChannelWiseThresholdWithNormalize,
     'CropWithBoundingBox': CropWithBoundingBox,
+    'CenterCrop': CenterCrop,
+    'GrayscaleToRGB': GrayscaleToRGB,
+    'GammaCorrection': GammaCorrection,
+    'GaussianNoise': GaussianNoise,
+    'LabelConvert': LabelConvert,
+    'LabelConvertNonzero': LabelConvertNonzero,
     'LabelToProbability': LabelToProbability,
     'NormalizeWithMeanStd': NormalizeWithMeanStd,
     'NormalizeWithMeanStd_dual': NormalizeWithMeanStd_dual,
+    'NormalizeWithMinMax': NormalizeWithMinMax,
+    'NormalizeWithPercentiles': NormalizeWithPercentiles,
+    'PartialLabelToProbability': PartialLabelToProbability,
+    'RandomCrop': RandomCrop,
+    'RandomResizedCrop': RandomResizedCrop,
+    'RandomRescale': RandomRescale,
+    'RandomFlip': RandomFlip,
+    'RandomRotate': RandomRotate,
+    'ReduceLabelDim': ReduceLabelDim,
+    'Rescale': Rescale,
     'Pad': Pad,
     'Pad_dual': Pad_dual,
-    'RandomCrop': RandomCrop,
-    'RandomFlip': RandomFlip,
-    'Rescale': Rescale,
 }
 
 

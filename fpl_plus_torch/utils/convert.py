@@ -1,5 +1,6 @@
-"""Weight bridge: JAX-package UNet2D5_dsbn variables -> this package's
-state dict (the reference PyTorch key layout).
+"""Weight bridge: JAX-package variables -> this package's state dicts (the
+reference PyTorch key layout for UNet2D5_dsbn and ``Dis``, the flax scopes
+for the other networks).
 
 The JAX variables arrive as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so no JAX is needed here. The mapping is the reference
@@ -22,6 +23,15 @@ layout of ``utils/torch_convert.py`` in the JAX package:
 ``dis_state_dict_from_jax`` does the same for the discriminator ``Dis``:
 flax ``Conv_0`` .. ``Conv_3`` -> ``convs.{i}``, ``Conv_4`` -> ``out_conv``
 (its InstanceNorms have no parameters).
+
+``state_dict_from_flax`` serves every other network (the UNet2D and UNet3D
+families, ``AEs``), whose submodules the port names after the flax scopes:
+an explicit scope name is kept, an automatic one shortened (``_SCOPES``,
+``_AUTO``). A scope with ``scale`` is a one-bank BatchNorm (``[1, C]`` rows
+-> ``weight``, ``bias``, ``running_mean``, ``running_var``); a ``kernel``
+is a transposed convolution under ``ConvTranspose_{k}`` or ``upconv{..}``,
+a dense layer when it has two axes (``[in, out]`` -> ``[out, in]``), else a
+convolution.
 """
 from __future__ import annotations
 
@@ -45,6 +55,60 @@ def _conv_transpose_kernel(w) -> np.ndarray:
     k = w.ndim - 2
     w = np.transpose(w, (k, k + 1) + tuple(range(k)))
     return np.flip(w, axis=tuple(range(2, w.ndim)))
+
+
+_SCOPES = {'ConvBlock2D_0': 'block', 'ConvBlock3D_0': 'block',
+           'ChannelSpatialSELayer_0': 'scse', 'ChannelSELayer_0': 'cse',
+           'SpatialSELayer_0': 'sse'}
+_AUTO = (('ConvTranspose_', 'convt'), ('Conv_', 'conv'), ('BatchNorm_', 'bn'),
+         ('Dense_', 'fc'))
+
+
+def _port_scope(scope: str) -> str:
+    if scope in _SCOPES:
+        return _SCOPES[scope]
+    for prefix, short in _AUTO:
+        if scope.startswith(prefix):
+            return short + scope[len(prefix):]
+    return scope
+
+
+def state_dict_from_flax(params: Dict, batch_stats: Dict = None
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``(params, batch_stats)`` of a network named after its flax
+    scopes -> a state dict that its ``load_state_dict(..., strict=True)``
+    accepts. Nested dicts of numpy arrays in, CPU tensors out."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(p, s, scopes):
+        name = '.'.join(_port_scope(x) for x in scopes)
+        if 'scale' in p:
+            sd[name + '.weight'] = np.reshape(p['scale'], -1)
+            sd[name + '.bias'] = np.reshape(p['bias'], -1)
+            sd[name + '.running_mean'] = np.reshape(s['mean'], -1)
+            sd[name + '.running_var'] = np.reshape(s['var'], -1)
+            sd[name + '.num_batches_tracked'] = np.asarray(0, np.int64)
+            return
+        for key, value in p.items():
+            if isinstance(value, dict):
+                walk(value, (s or {}).get(key, {}), scopes + (key,))
+            elif key == 'kernel':
+                w = np.asarray(value)
+                if scopes[-1].startswith(('ConvTranspose_', 'upconv')):
+                    w = _conv_transpose_kernel(w)
+                elif w.ndim == 2:
+                    w = w.T
+                else:
+                    w = _conv_kernel(w)
+                sd[name + '.weight'] = w
+            else:
+                sd[name + '.' + key] = np.asarray(value)
+
+    walk(params, batch_stats or {}, ())
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64
+                                         if k.endswith('num_batches_tracked')
+                                         else np.float32))
+            for k, v in sd.items()}
 
 
 def state_dict_from_jax(params: Dict, batch_stats: Dict,

@@ -120,12 +120,12 @@ def test_param_count_matches_jax_at_net_cfg():
 
 
 def test_dsbn_train_mode_and_unported_nets_raise():
+    """The errors that remain: DSBN's out-of-range domain and an undefined
+    network (every name of the JAX registry builds)."""
     net = create_network(SMALL)
     net.train()
     with pytest.raises(ValueError, match='outside'):
         net(torch.zeros(1, 1, 8, 32, 32), 2)
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        create_network(dict(SMALL, net_type='UNet3D'))
     with pytest.raises(ValueError, match='Undefined network'):
         create_network(dict(SMALL, net_type='NoSuchNet'))
     # pallas_fused / flat25d are accepted and change nothing

@@ -135,8 +135,8 @@ def _port_names(params, stats):
                                TINY)
 
 
-def check_grads(ref_params_grads, stats, got):
-    ref = _port_names(ref_params_grads, stats)
+def check_grads(ref_params_grads, stats, got, to_port=_port_names):
+    ref = to_port(ref_params_grads, stats)
     top = max(float(v.abs().max()) for k, v in ref.items() if k in got)
     for name, g in got.items():
         tol = 1e-3 * float(ref[name].abs().max()) + 1e-5 * top
@@ -145,9 +145,10 @@ def check_grads(ref_params_grads, stats, got):
     return top
 
 
-def check_params(ref_params, ref_stats, ref_grads, got_sd, lr=LR):
-    ref = _port_names(ref_params, ref_stats)
-    grads = _port_names(ref_grads, ref_stats)
+def check_params(ref_params, ref_stats, ref_grads, got_sd, lr=LR,
+                 to_port=_port_names):
+    ref = to_port(ref_params, ref_stats)
+    grads = to_port(ref_grads, ref_stats)
     top = max(float(v.abs().max()) for k, v in grads.items()
               if not k.endswith(('running_mean', 'running_var',
                                  'num_batches_tracked')))

@@ -131,10 +131,15 @@ def test_losses_match_jax(case):
 
 
 def test_unported_loss_raises_and_names_the_ported():
-    with pytest.raises(NotImplementedError, match='DiceLoss_weight'):
-        create_loss_calculator({'training': {'loss_type': 'FocalDiceLoss'}})
-    assert sorted(SegLossDict) == ['CrossEntropyLoss', 'DiceLoss',
-                                   'DiceLoss_weight']
+    """Every loss of the JAX registry is ported: an undefined name, alone
+    or in a combined list, raises ``ValueError`` as there."""
+    from fpl_plus_tpu.losses import SegLossDict as JaxSegLossDict
+    assert sorted(SegLossDict) == sorted(JaxSegLossDict)
+    with pytest.raises(ValueError, match='Undefined loss'):
+        create_loss_calculator({'training': {'loss_type': 'NoSuchLoss'}})
+    with pytest.raises(ValueError, match='NoSuchLoss'):
+        create_loss_calculator({'training': {
+            'loss_type': ['DiceLoss', 'NoSuchLoss'], 'loss_weight': [1, 1]}})
 
 
 # -- 5. the train loader stream ---------------------------------------------
