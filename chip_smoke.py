@@ -96,10 +96,29 @@ then runs, each phase failing the script on any error:
     GammaCorrection, GaussianNoise and NormalizeWithPercentiles in its
     chain), the auto test stage on the phase-4 volumes and ``eva_main``,
     with 0 kernel launches; then the Inferer with a UNet2D_URPC predictor
-    (4 heads) card vs CPU under both ``multiscale_counter`` modes.
+    (4 heads) card vs CPU under both ``multiscale_counter`` modes;
+21. SSL steps (``fpl_plus_torch/agents/ssl.py``): one step of each of the
+    6 methods card vs CPU at small widths (SGD, TF32 off, dropout 0, the
+    teacher's noise zeroed, CCT's and URPC's train-mode draws taken from
+    the same CPU generators): loss components, gradients, BN statistics
+    and the EMA teacher by phase 11's tolerances; then 3 steps of each at
+    full width (EntropyMinimization, MeanTeacher, UAMT with 8 MC passes
+    and CPS on UNet2D5 at NET_CFG with one domain, CCT and URPC on their
+    zoo nets; 2 + 2 crops of [28,128,128], Adam): ms per step and peak
+    memory, no kernel launch;
+22. WSL steps (``agents/wsl.py``): the same for the 6 WSL methods on
+    UNet2D5 with 2 scribbled crops (GatedCRF at radius 5, USTM with 8
+    passes, DMPLS as a BiNet);
+23. the paradigm CLIs at full width on phase 13's workspace:
+    ``main_ssl train`` of MeanTeacher (6 iterations, validation and
+    checkpoints every 3, the auto test stage on the phase-4 volumes and
+    ``eva_main``), its resume (the restored teacher equals the saved one),
+    ``main_wsl train`` of GatedCRF on scribbles through
+    ``PartialLabelToProbability``, and ``main_ssl test`` of a BiNet (CPS):
+    launches equal to 18 x the eval-mode UNet2D5 forwards of each run.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20) sets the launch counter
-to 0 just before it and reads it just after. Then it prints one
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23) sets the launch
+counter to 0 just before it and reads it just after. Then it prints one
 ``{"kernels": [...]}``
 line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -1838,6 +1857,514 @@ def supervised_phase(root, dev):
             'wall_s': wall, 'urpc': urpc}
 
 
+PARADIGMS = {
+    'ssl': ('semi_supervised_learning', 'ssl_method',
+            ('EntropyMinimization', 'MeanTeacher', 'UAMT', 'CCT', 'CPS',
+             'URPC')),
+    'wsl': ('weakly_supervised_learning', 'wsl_method',
+            ('EntropyMinimization', 'TotalVariation', 'MumfordShah',
+             'GatedCRF', 'USTM', 'DMPLS')),
+}
+PARADIGM_NET = dict(NET_CFG, net_type='UNet2D5', num_domains=1)
+PARADIGM_ZOO = {'CCT': 'UNet2D_CCT', 'URPC': 'UNet2D_URPC'}   # SSL only
+BINET = ('CPS', 'DMPLS')
+PARADIGM_CROP = (16, 64, 64)              # the card-vs-CPU check's crop
+PARADIGM_STEPS = 3
+PARADIGM_IT = 5                           # the ramp's iteration in a check
+
+
+def paradigm_config(kind, method, widths=None, dropout=None,
+                    optimizer='Adam'):
+    """The agent config of one SSL/WSL method: UNet2D5 at NET_CFG (one
+    domain), CCT and URPC on their zoo nets at phase 18's widths."""
+    section, key, _ = PARADIGMS[kind]
+    zoo = PARADIGM_ZOO.get(method) if kind == 'ssl' else None
+    net = dict(ZOO_CFG, net_type=zoo) if zoo else dict(PARADIGM_NET)
+    if widths is not None:
+        net['feature_chns'] = list(widths)
+    if dropout is not None:
+        net['dropout'] = [dropout] * len(net['feature_chns'])
+    return {'dataset': {'task_type': 'seg'}, 'network': net,
+            'training': {'loss_type': 'DiceLoss', 'optimizer': optimizer,
+                         'learning_rate': 1e-4, 'weight_decay': 0.0,
+                         'iter_max': 100},
+            'testing': {},
+            section: {key: method, 'regularize_w': 0.1, 'rampup_start': 0,
+                      'rampup_end': 10}}
+
+
+def paradigm_agent(kind, cfg, net, dev):
+    """The method's agent with ``net`` on ``dev`` and its step object."""
+    from fpl_plus_torch.agents.ssl import SSLMethodDict
+    from fpl_plus_torch.agents.wsl import WSLMethodDict
+    from fpl_plus_torch.engine.optim import create_optimizer
+    section, key, _ = PARADIGMS[kind]
+    registry = SSLMethodDict if kind == 'ssl' else WSLMethodDict
+    agent = registry[cfg[section][key]](cfg, 'train', dev)
+    agent.module = net.to(dev).train()
+    step = agent._build_step(create_optimizer(cfg['training'],
+                                              net.parameters()), None)
+    return agent, step
+
+
+def paradigm_net(cfg, method, seed):
+    from fpl_plus_torch.models.multi_net import make_binet
+    from fpl_plus_torch.models.registry import create_network
+    net = (make_binet if method in BINET else create_network)(
+        cfg['network'])
+    init_random_(net, seed)
+    return net
+
+
+def paradigm_batches(kind, method, gen, n, crop, dev):
+    """Seeded host data of one step, on ``dev``: SSL ``{'lab', 'unlab'}``
+    (n + n crops), WSL ``(batch,)`` with 10% of the voxels scribbled
+    (``pixel_weight``), USTM with its rotation 1."""
+    x = torch.randn((n, 1) + tuple(crop), generator=gen)
+    y = F.one_hot((x[:, 0] > 0.5).long(), 2).movedim(-1, 1).float()
+    if kind == 'ssl':
+        unlab = torch.randn((n, 1) + tuple(crop), generator=gen)
+        return {'lab': {'image': x.to(dev), 'label_prob': y.to(dev)},
+                'unlab': {'image': unlab.to(dev)}}
+    pw = (torch.rand((n, 1) + tuple(crop), generator=gen) < 0.1).float()
+    batch = ({'image': x.to(dev), 'label_prob': y.to(dev),
+              'pixel_weight': pw.to(dev)},)
+    return batch + (1,) if method == 'USTM' else batch
+
+
+def paradigm_hyper(agent, method, iteration):
+    hyper = agent.training_hyper(iteration)
+    if method == 'DMPLS':
+        hyper['beta'] = 0.3
+    return hyper
+
+
+@contextlib.contextmanager
+def equal_draws():
+    """The teacher's input noise zeroed, and the draws that UNet2D_CCT and
+    UNet2D_URPC make in train mode at network dropout 0 taken from CPU
+    generators seeded by the tensor's shape, so that the card and the CPU
+    see the same masks, quantile and noise."""
+    from fpl_plus_torch.agents import ssl, wsl
+    from fpl_plus_torch.models import unet2d
+
+    def host_uniform(shape, device):
+        key = int(np.prod(shape)) % (2 ** 31) + len(shape)
+        return torch.rand(tuple(shape), generator=torch.Generator()
+                          .manual_seed(key)).to(device)
+
+    def dropout(x, p, generators=None):
+        if p == 0 or generators is None:
+            return x
+        keep = host_uniform(x.shape, x.device) < 1.0 - p
+        return torch.where(keep, x / (1.0 - p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def uniform(shape, low, high, generators, device):
+        full = (shape[0] * len(generators),) + tuple(shape[1:])
+        return host_uniform(full, device) * (high - low) + low
+
+    saved = [(ssl, 'noise_like'), (wsl, 'noise_like'),
+             (unet2d, 'grouped_dropout'), (unet2d, '_group_uniform')]
+    saved = [(m, n, getattr(m, n)) for m, n in saved]
+    zeros = (lambda gen, x: torch.zeros_like(x))
+    ssl.noise_like = wsl.noise_like = zeros
+    unet2d.grouped_dropout, unet2d._group_uniform = dropout, uniform
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def scale_heads_(net, factor=0.02):
+    """Output convolutions x ``factor``: logits of order 1. The random
+    He-initialised weights give logits of ~100, whose saturated softmax
+    leaves Dice gradients that cancel to a small part of their terms: a
+    CPU f32 step of the small-width UNet2D5 was then 1.36 x phase 11's
+    gradient tolerance away from its float64 step on a PReLU slope, and
+    0.043 x with the heads scaled (the CPU, measured)."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            scope = name.split('.')[-2]
+            if name.endswith('weight') and scope.startswith(('out_conv',
+                                                             'head')):
+                p.mul_(factor)
+
+
+def paradigm_check(kind, dev):
+    """(21a / 22a) One step of each method, card vs CPU at small widths:
+    SGD, TF32 off, dropout 0, equal draws, heads scaled (``scale_heads_``),
+    1 + 1 crops (WSL: 1 crop) of PARADIGM_CROP. Loss components, the gradients, the BN statistics and
+    the teacher after its update, by phase 11's tolerances."""
+    results = {}
+    with equal_draws():
+        for i, method in enumerate(PARADIGMS[kind][2]):
+            cfg = paradigm_config(kind, method, ZOO_SMALL, 0.0, 'SGD')
+            net = paradigm_net(cfg, method, SEED + 140 + i)
+            scale_heads_(net)
+            gen = torch.Generator().manual_seed(SEED + 160 + i)
+            host = paradigm_batches(kind, method, gen, 1, PARADIGM_CROP,
+                                    'cpu')
+            out = []
+            for where in (dev, torch.device('cpu')):
+                agent, step = paradigm_agent(kind, cfg, copy.deepcopy(net),
+                                             where)
+                batches = host
+                if where != torch.device('cpu'):
+                    batches = (
+                        {k: {n: t.to(where) for n, t in v.items()}
+                         for k, v in host.items()} if kind == 'ssl' else
+                        ({k: t.to(where) for k, t in host[0].items()},)
+                        + host[1:])
+                with tf32_off():
+                    m = step(batches, agent._step_generators(PARADIGM_IT),
+                             **paradigm_hyper(agent, method, PARADIGM_IT))
+                    torch.cuda.synchronize()
+                module = agent.module
+                out.append({
+                    'metrics': {k: v.cpu() for k, v in m.items()},
+                    'grads': {k: p.grad.cpu()
+                              for k, p in module.named_parameters()},
+                    'stats': {k: b.cpu() for k, b in module.named_buffers()
+                              if k.endswith(('running_mean', 'running_var'))},
+                    'teacher': None if agent.teacher is None else {
+                        k: v.cpu() for k, v in agent.teacher.params.items()}})
+            got, want = out
+            loss_err = max(abs(float(got['metrics'][k] - want['metrics'][k]))
+                           for k in ('loss', 'loss_sup', 'loss_reg'))
+            dice_err = float((got['metrics']['class_dice_0']
+                              - want['metrics']['class_dice_0']).abs().max())
+            top = max(float(g.abs().max()) for g in want['grads'].values())
+            worst, worst_name = 0.0, None
+            for name, g in got['grads'].items():
+                ref = want['grads'][name]
+                ratio = float((g - ref).abs().max()) / (
+                    GRAD_RTOL * float(ref.abs().max()) + GRAD_NET_TOL * top)
+                if ratio > worst:
+                    worst, worst_name = ratio, name
+
+            def rel(a, b):
+                return max((float((a[k] - b[k]).abs().max())
+                            / max(float(b[k].abs().max()), 1e-12)
+                            for k in b), default=0.0)
+            stats_err = rel(got['stats'], want['stats'])
+            teacher_err = (rel(got['teacher'], want['teacher'])
+                           if want['teacher'] is not None else None)
+            print('{0} {1} card vs CPU (widths {2}, crop {3}, SGD, TF32 '
+                  'off): loss {4!r} vs {5!r}, max abs err of loss / '
+                  'loss_sup / loss_reg {6:.3g} (tolerance {7}); class dice '
+                  'err {8:.3g}; worst gradient {9} at {10:.3g} of its '
+                  'tolerance; BN statistics max rel err {11:.3g}; teacher '
+                  '{12}'.format(
+                      kind, method, ZOO_SMALL, list(PARADIGM_CROP),
+                      float(got['metrics']['loss']),
+                      float(want['metrics']['loss']), loss_err,
+                      STEP_LOSS_TOL, dice_err, worst_name, worst, stats_err,
+                      'none' if teacher_err is None else
+                      'max rel err {0:.3g}'.format(teacher_err)))
+            check(loss_err <= STEP_LOSS_TOL, '{0} {1} loss disagrees'.format(
+                kind, method))
+            check(dice_err <= STEP_DICE_TOL, '{0} {1} dice disagrees'.format(
+                kind, method))
+            check(worst <= 1.0, '{0} {1} gradient {2} disagrees'.format(
+                kind, method, worst_name))
+            check(stats_err <= STATS_TOL, '{0} {1} BN statistics disagree'
+                  .format(kind, method))
+            check(teacher_err is None or teacher_err <= STATS_TOL,
+                  '{0} {1} teacher disagrees'.format(kind, method))
+            results[method] = {'loss_err': loss_err, 'grad_worst': worst,
+                               'stats_err': stats_err,
+                               'teacher_err': teacher_err}
+    return results
+
+
+def paradigm_timed(kind, dev, macs):
+    """(21b / 22b) Each method for PARADIGM_STEPS steps at full width
+    (2 + 2 crops of WINDOW for SSL, 2 scribbled crops for WSL), Adam, the
+    network's dropout: CUDA-event ms per step (median of steps 2-3), peak
+    device memory; TFLOP per step reckoned for the UNet2D5 methods from
+    phase 3's MACs (student rows x 3, teacher forwards x 1). No kernel
+    launch (train-mode forwards only)."""
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+    results = {}
+    for i, method in enumerate(PARADIGMS[kind][2]):
+        cfg = paradigm_config(kind, method)
+        net = paradigm_net(cfg, method, SEED + 180 + i)
+        agent, step = paradigm_agent(kind, cfg, net, dev)
+        gen = torch.Generator().manual_seed(SEED + 200 + i)
+        batches = paradigm_batches(kind, method, gen, 2, WINDOW, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for k in range(PARADIGM_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(batches, agent._step_generators(k),
+                     **paradigm_hyper(agent, method, k))
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append([float(m[key]) for key in
+                           ('loss', 'loss_sup', 'loss_reg')])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(np.isfinite(losses).all(), '{0} {1} losses {2}'.format(
+            kind, method, losses))
+        med = float(np.median(ms[1:]))
+        rows = 4 if kind == 'ssl' else 2           # student rows
+        teacher_rows = {'MeanTeacher': 2, 'UAMT': 18, 'USTM': 18}.get(
+            method, 0)
+        peers = 2 if method in BINET else 1
+        tflop = None
+        if cfg['network']['net_type'] == 'UNet2D5':
+            tflop = (2 * macs * (3 * rows * peers + teacher_rows)) / 1e12
+        results[method] = {'ms': med, 'ms_all': ms, 'peak_gib': peak,
+                           'tflop': tflop, 'losses': losses}
+        print('{0} {1} step at full width ({2}, {3} crops {4}): {5:.2f} ms '
+              '(median of steps 2-{6}; all {7}), peak {8:.2f} GiB{9}, losses '
+              '(loss, sup, reg) {10}'.format(
+                  kind, method, cfg['network']['net_type'],
+                  '2 + 2' if kind == 'ssl' else '2', WINDOW, med,
+                  PARADIGM_STEPS, ['{0:.1f}'.format(t) for t in ms], peak,
+                  '' if tflop is None else ', {0:.2f} TFLOP reckoned, {1:.1f} '
+                  'TFLOP/s'.format(tflop, tflop / med * 1e3),
+                  [['{0:.4f}'.format(v) for v in row] for row in losses]))
+        del step, agent, net, batches
+        torch.cuda.empty_cache()
+    check(dsbn_prelu.launches == before, 'the {0} steps launched the '
+          'DSBN+PReLU kernel'.format(kind))
+    return results
+
+
+PARADIGM_CLI_CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+train_csv = {root}/{train_csv}
+train_csv_unlab = {root}/unlab.csv
+valid_csv = {root}/d1_valid.csv
+test_csv = {root}/target_test.csv
+train_batch_size = 2
+train_batch_size_unlab = 2
+train_transform = [NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip, {label_transform}]
+train_transform_unlab = [NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip]
+valid_transform = [NormalizeWithMeanStd, Pad, LabelToProbability]
+test_transform = [NormalizeWithMeanStd, Pad]
+NormalizeWithMeanStd_channels = [0]
+Pad_output_size = {window}
+RandomCrop_output_size = {window}
+RandomCrop_foreground_focus = False
+RandomFlip_flip_depth = False
+RandomFlip_flip_height = True
+RandomFlip_flip_width = True
+
+[network]
+net_type = UNet2D5
+num_domains = 1
+class_num = 2
+in_chns = 1
+feature_chns = {widths}
+conv_dims = [2, 2, 3, 3, 3]
+dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
+bilinear = False
+
+[training]
+loss_type = DiceLoss
+optimizer = Adam
+learning_rate = 1e-4
+weight_decay = 1e-5
+lr_scheduler = None
+iter_start = {start}
+iter_max = {stop}
+iter_valid = {valid}
+iter_save = {valid}
+random_seed = 3
+ckpt_save_dir = {root}/model/{tag}
+
+[testing]
+ckpt_mode = 0
+output_dir = {root}/out_{tag}
+sliding_window_enable = True
+sliding_window_size = {window}
+sliding_window_stride = {window}
+tta_mode = 1
+patch_chunk = 2
+
+[{section}]
+{key} = {method}
+regularize_w = 0.1
+rampup_start = 0
+rampup_end = 6
+{extra}
+{evaluation}
+"""
+
+
+def paradigm_cli_cfg(root, kind, method, tag, start=0, stop=2, valid=2,
+                     train_csv='d1_train.csv',
+                     label_transform='LabelToProbability', extra='',
+                     evaluation=''):
+    """The config file of one run: checkpoints under ``model/{tag}``,
+    labels under ``out_{tag}``; named after the tag and the start."""
+    section, key, _ = PARADIGMS[kind]
+    cfg = os.path.join(root, 'paradigm_{0}_{1}.cfg'.format(tag, start))
+    with open(cfg, 'w') as f:
+        f.write(PARADIGM_CLI_CFG.format(
+            root=root, train_csv=train_csv, label_transform=label_transform,
+            start=start, stop=stop, valid=valid, tag=tag, section=section,
+            key=key, method=method, extra=extra, evaluation=evaluation,
+            window=list(WINDOW), widths=PARADIGM_NET['feature_chns']))
+    return cfg
+
+
+def write_paradigm_workspace(root):
+    """On phase 13's workspace: the unlabelled manifest (the two domain-0
+    volumes) and scribbles cut from the phase-4 volumes' labels (10% of
+    each class's voxels kept, the rest class 2, unlabelled)."""
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_nifti
+    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(0.4, 0.4, 1.5),
+                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
+    with open(os.path.join(root, 'unlab.csv'), 'w') as f:
+        f.write('image\nsrc/case0.nii.gz\nsrc/case1.nii.gz\n')
+    rs = np.random.RandomState(SEED + 220)
+    rows = list(csv.reader(open(os.path.join(root, 'd1_train.csv'))))[1:]
+    out = []
+    for image, label in rows:
+        lab = load_image_as_nd_array(os.path.join(root, label))[
+            'data_array'][0]
+        scribble = np.where(rs.uniform(size=lab.shape) < 0.1, lab, 2)
+        name = label.replace('lab/', 'lab/scribble_')
+        write_nifti(NiftiImage(scribble.astype(np.int16), geom),
+                    os.path.join(root, name))
+        out.append('{0},{1}\n'.format(image, name))
+    with open(os.path.join(root, 'scribble_train.csv'), 'w') as f:
+        f.write('image,label\n' + ''.join(out))
+
+
+def paradigm_cli_phase(root, fwd_per_volume):
+    """(23) The SSL and WSL CLIs at full width on phase 13's workspace:
+    ``main_ssl train`` of MeanTeacher (6 iterations, validation and
+    checkpoints every 3, the auto test stage on the phase-4 volumes and
+    ``eva_main``); its resume from iteration 6 (one iteration), whose
+    restored teacher must equal the saved one; ``main_wsl train`` of
+    GatedCRF on scribbles (2 iterations); ``main_ssl test`` of CPS from a
+    seeded BiNet checkpoint. Each run's kernel launches are counted."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.agents.ssl import MeanTeacherStep, ParadigmAgent
+    from fpl_plus_torch.agents.wsl import RegularizedStep
+    from fpl_plus_torch.models.multi_net import make_binet
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    write_paradigm_workspace(root)
+    restored = []
+    orig_teacher = ParadigmAgent._make_teacher
+
+    def capture(self):
+        teacher = orig_teacher(self)
+        restored.append({k: v.detach().cpu().clone()
+                         for k, v in teacher.params.items()})
+        return teacher
+
+    ckpt = make_binet(PARADIGM_NET)
+    init_random_(ckpt, SEED + 230)
+    os.makedirs(os.path.join(root, 'model', 'cps'))
+    torch.save({'iteration': 1, 'valid_pred': 0.0,
+                'model_state_dict': ckpt.state_dict()},
+               os.path.join(root, 'model', 'cps', 'cps_1.pt'))
+    with open(os.path.join(root, 'model', 'cps', 'cps_latest.txt'),
+              'w') as f:
+        f.write('1')
+    runs = {
+        # tag: (main, stage, cfg, train steps, validations, step class)
+        'mt': (cli.main_ssl, 'train', paradigm_cli_cfg(
+            root, 'ssl', 'MeanTeacher', 'mt', 0, 6, 3,
+            evaluation=EVAL_SECTION.format(root=root)), 6, 2,
+            MeanTeacherStep),
+        'mt_resume': (cli.main_ssl, 'train', paradigm_cli_cfg(
+            root, 'ssl', 'MeanTeacher', 'mt', 6, 7, 1), 1, 1,
+            MeanTeacherStep),
+        'crf': (cli.main_wsl, 'train', paradigm_cli_cfg(
+            root, 'wsl', 'GatedCRF', 'crf', 0, 2, 2,
+            train_csv='scribble_train.csv',
+            label_transform='PartialLabelToProbability'), 2, 1,
+            RegularizedStep),
+        'cps_test': (cli.main_ssl, 'test', paradigm_cli_cfg(
+            root, 'ssl', 'CPS', 'cps'), 0, 0, None),
+    }
+    results = {}
+    ParadigmAgent._make_teacher = capture
+    try:
+        for tag, (main, stage, cfg, steps, validations, step_cls) in \
+                runs.items():
+            step_ms, valid_ms, eval_s = [], [], []
+            with contextlib.ExitStack() as stack:
+                if step_cls is not None:
+                    stack.enter_context(timed_method(step_cls, '__call__',
+                                                     step_ms))
+                stack.enter_context(timed_method(SegmentationAgent,
+                                                 'validation', valid_ms))
+                stack.enter_context(timed_function(cli, 'eva_main', eval_s))
+                forwards = stack.enter_context(counting_forwards())
+                torch.cuda.reset_peak_memory_stats()
+                dsbn_prelu.launches = 0  # this path's count starts here
+                t0 = time.perf_counter()
+                rc = main([stage, cfg])
+                wall = time.perf_counter() - t0
+                launches = dsbn_prelu.launches
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            peers = 2 if tag == 'cps_test' else 1
+            n_eval = (validations + 1) * N_VOLUMES * fwd_per_volume * peers
+            check(rc == 0, '{0} rc {1}'.format(tag, rc))
+            check(len(step_ms) == steps, '{0}: {1} steps'.format(
+                tag, len(step_ms)))
+            check(forwards[0] == n_eval and launches == 18 * forwards[0]
+                  and launches > 0, '{0}: {1} eval forwards (expected {2}), '
+                  '{3} launches'.format(tag, forwards[0], n_eval, launches))
+            labels = [n for n in os.listdir(os.path.join(
+                root, 'out_' + tag.split('_')[0], tag.split('_')[0]
+                + '_target_test')) if n.endswith('.nii.gz')]
+            check(len(labels) == N_VOLUMES, '{0} labels {1}'.format(
+                tag, labels))
+            if tag == 'mt':      # before the resume's checkpoints
+                saved = torch.load(os.path.join(root, 'model', 'mt',
+                                                'mt_6.pt'),
+                                   map_location='cpu', weights_only=False)
+            results[tag] = {'launches': launches, 'forwards': forwards[0],
+                            'step_ms': step_ms, 'valid_ms': valid_ms,
+                            'eval_s': eval_s, 'wall_s': wall,
+                            'peak_gib': peak}
+            print('paradigm cli {0} ({1} {2}): {3} steps at {4} ms, {5} '
+                  'validations at {6} ms ({7} volumes each), eva_main {8}, '
+                  '{9} eval forwards, {10} kernel launches, peak {11:.2f} '
+                  'GiB, {12:.1f} s wall'.format(
+                      tag, main.__name__, stage, len(step_ms),
+                      ['{0:.1f}'.format(t) for t in step_ms],
+                      len(valid_ms), ['{0:.1f}'.format(t) for t in valid_ms],
+                      N_VOLUMES, ['{0:.2f} s'.format(t) for t in eval_s],
+                      forwards[0], launches, peak, wall))
+    finally:
+        ParadigmAgent._make_teacher = orig_teacher
+    teacher = saved['ema_state_dict']
+    check(len(restored) == 2 and set(restored[1]) == set(teacher)
+          and all(torch.equal(restored[1][k], v) for k, v in teacher.items()),
+          'the resumed teacher differs from the saved one')
+    student = saved['model_state_dict']
+    drift = max(float((teacher[k] - student[k]).abs().max())
+                for k in teacher)
+    check(drift > 0, 'the saved teacher equals the student')
+    dice = read_csv(os.path.join(root, 'out_mt', 'mt_target_test',
+                                 'test_block_dice_all.csv'))
+    check(len(dice) == N_VOLUMES + 3 and all(
+        np.isfinite(float(r[1])) for r in dice[1:]), 'dice {0}'.format(dice))
+    print('paradigm cli: the resumed teacher equals the saved one '
+          '({0} tensors; max |teacher - student| {1:.3g} at iteration 6); '
+          'MeanTeacher dice {2}'.format(len(teacher), drift, dice[-2][1]))
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -1882,6 +2409,11 @@ def main():
         zoo = zoo_phase(dev)
         zoo_train = zoo_train_phase(dev, zoo)
         supervised = supervised_phase(ws, dev)
+        ssl_check = paradigm_check('ssl', dev)
+        ssl_timed = paradigm_timed('ssl', dev, macs)
+        wsl_check = paradigm_check('wsl', dev)
+        wsl_timed = paradigm_timed('wsl', dev, macs)
+        paradigm_cli = paradigm_cli_phase(ws, fwd_per_volume)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -1945,6 +2477,10 @@ def main():
           .format(float(np.median(supervised['step_ms'][1:])),
                   float(np.median(supervised['valid_ms'])) / N_VOLUMES,
                   sum(supervised['eval_s'])))
+    for paradigm, steps in (('ssl', ssl_timed), ('wsl', wsl_timed)):
+        for m, r in steps.items():
+            print('{0} summary {1}: step {2:.2f} ms, peak {3:.2f} GiB'.format(
+                paradigm, m, r['ms'], r['peak_gib']))
     print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
           '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
           'card vs CPU gradient max rel err {5:.3g}'.format(
@@ -1960,7 +2496,8 @@ def main():
                      + sum(r['launches'] for r in train.values())
                      + sum(r['launches'] for r in variants.values())
                      + sum(r['launches'] for k, r in paths.items()
-                           if isinstance(r, dict))),
+                           if isinstance(r, dict))
+                     + sum(r['launches'] for r in paradigm_cli.values())),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -1997,6 +2534,15 @@ def main():
         'eval_s_per_volume': evaluation['s_per_volume'],
         'distance_s': evaluation['distance_s'],
         'supervised_cli_launches': supervised['launches'],
+        'paradigm_cli_launches': {t: r['launches']
+                                  for t, r in paradigm_cli.items()},
+        'paradigm_step_ms': {'{0} {1}'.format(paradigm, m): r['ms']
+                             for paradigm, steps in (('ssl', ssl_timed),
+                                                     ('wsl', wsl_timed))
+                             for m, r in steps.items()},
+        'paradigm_check_grad_worst': max(
+            r['grad_worst'] for r in list(ssl_check.values())
+            + list(wsl_check.values())),
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -212,8 +212,11 @@ def _check_micro_keys(micros) -> None:
 
 
 def _to_device(tree, device):
+    """Tensors of a nested batch to ``device``; host numbers stay."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device, non_blocking=True)
+    if isinstance(tree, (int, float)):
+        return tree
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return type(tree)(_to_device(v, device) for v in tree)
@@ -374,17 +377,23 @@ class SegmentationAgent(NetRunAgent):
             sched_params['last_iter'] = iter_start - 1
             logging.info('checkpoint has no optimizer state; fresh '
                          'optimizer with schedule offset %d', iter_start)
-        if self.dis is not None:
-            if 'dis_state_dict' in loaded:
-                self.dis.load_state_dict(loaded['dis_state_dict'])
-                self.dis_optimizer.load_state_dict(
-                    loaded['dis_optimizer_state_dict'])
-                logging.info('restored the discriminator from %s', path)
-            else:
-                logging.info('checkpoint has no discriminator state; fresh '
-                             'discriminator kept')
+        self._restore_extra(loaded, path)
         logging.info('resumed from %s', path)
         return opt_state, loaded['model_state_dict']
+
+    def _restore_extra(self, loaded, path):
+        """The state a checkpoint carries beside the network and its
+        optimizer: here the discriminator's."""
+        if self.dis is None:
+            return
+        if 'dis_state_dict' in loaded:
+            self.dis.load_state_dict(loaded['dis_state_dict'])
+            self.dis_optimizer.load_state_dict(
+                loaded['dis_optimizer_state_dict'])
+            logging.info('restored the discriminator from %s', path)
+        else:
+            logging.info('checkpoint has no discriminator state; fresh '
+                         'discriminator kept')
 
     def train_valid(self):
         cfg_t = self.config['training']

@@ -9,9 +9,11 @@ and the JAX package's ``engine/optim.py``:
   moment (optax's and torch's form alike); weight decay is additive L2 on
   the gradient. SparseAdam maps to Adam and ASGD to SGD, as in the JAX
   package. The others keep ``torch.optim``'s defaults, which are the
-  reference's (the JAX package's optax choices differ for Adagrad's initial
-  accumulator and RMSprop's decay). LBFGS needs a closure the step loop does
-  not give, so it raises.
+  reference's and the contract the JAX module's docstring names (its optax
+  choices differ for Adagrad's initial accumulator and RMSprop's decay).
+  LBFGS is ``LBFGS`` below: optax's ``lbfgs(lr, linesearch=None)``, which
+  the JAX package runs; ``torch.optim.LBFGS`` would need a closure per
+  step.
 * schedules: MultiStepLR over training iterations (milestones x gamma,
   with the resume offset of a fresh optimizer, ``last_iter``), and the
   host-side ``PlateauScheduler`` (ReduceLROnPlateau in max mode on
@@ -31,6 +33,83 @@ from typing import Callable, Optional
 
 import torch
 
+
+class LBFGS(torch.optim.Optimizer):
+    """optax 0.2.6's ``lbfgs(lr, linesearch=None)``: ``scale_by_lbfgs``
+    (memory 10, ``scale_init_precond``) then ``-lr``, so the update is
+    ``-lr`` times the two-loop direction of the gradient; no line search,
+    so ``step()`` needs no closure, and no weight decay, as in the JAX
+    package.
+
+    All parameters form one flat vector (the inner products run over the
+    whole network, as optax's tree ``vdot`` does). Per step, with w the
+    parameters and g the gradient: from the second step the pair
+    ``(w - w_prev, g - g_prev)`` and its weight ``1 / <dg, dw>`` (0 where
+    that is 0) enter the ring slot of the previous step; the initial
+    inverse Hessian is ``<dg, dw> / |dg|^2`` times the identity (1 where
+    ``|dg|`` is 0), at the first step ``min(1, 1 / |g|)``; then the two
+    loops over the ring, oldest pair innermost."""
+
+    def __init__(self, params, lr: float, memory_size: int = 10):
+        super().__init__(params, {'lr': lr})
+        if len(self.param_groups) != 1:
+            raise ValueError('LBFGS takes one parameter group')
+        self.memory_size = memory_size
+
+    def _flat(self, grads: bool) -> torch.Tensor:
+        return torch.cat([(p.grad if grads else p).detach().reshape(-1)
+                          for p in self.param_groups[0]['params']])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        group = self.param_groups[0]
+        params = group['params']
+        w, g = self._flat(False), self._flat(True)
+        m = self.memory_size
+        state = self.state[params[0]]
+        if not state:
+            state.update(count=0, w_prev=torch.zeros_like(w),
+                         g_prev=torch.zeros_like(g),
+                         dw=torch.zeros((m,) + w.shape, dtype=w.dtype,
+                                        device=w.device),
+                         dg=torch.zeros((m,) + w.shape, dtype=w.dtype,
+                                        device=w.device),
+                         rho=torch.zeros(m, dtype=w.dtype, device=w.device))
+        count = int(state['count'])
+        dw, dg, rho = state['dw'], state['dg'], state['rho']
+        if count > 0:
+            prev = (count - 1) % m
+            dw[prev] = w - state['w_prev']
+            dg[prev] = g - state['g_prev']
+            curv = torch.dot(dg[prev], dw[prev])
+            rho[prev] = torch.where(curv == 0, torch.zeros_like(curv),
+                                    1.0 / curv)
+            den = torch.dot(dg[prev], dg[prev])
+            gamma = torch.where(den > 0, curv / den, torch.ones_like(den))
+        else:
+            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+        order = [(count + j) % m for j in range(m)]
+        vec, alphas = g.clone(), {}
+        for i in reversed(order):
+            alphas[i] = rho[i] * torch.dot(dw[i], vec)
+            vec -= alphas[i] * dg[i]
+        vec *= gamma
+        for i in order:
+            beta = rho[i] * torch.dot(dg[i], vec)
+            vec += (alphas[i] - beta) * dw[i]
+        state['w_prev'], state['g_prev'] = w, g
+        state['count'] = count + 1
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.add_(vec[offset:offset + n].view_as(p), alpha=-group['lr'])
+            offset += n
+        return loss
+
 _OPTIMIZERS = {
     'sgd': torch.optim.SGD, 'asgd': torch.optim.SGD,
     'adam': torch.optim.Adam, 'sparseadam': torch.optim.Adam,
@@ -49,8 +128,9 @@ def create_optimizer(optim_cfg: dict, params) -> torch.optim.Optimizer:
     name = optim_cfg['optimizer']
     key = name.lower()
     if key == 'lbfgs':
-        raise NotImplementedError(
-            'LBFGS is not ported: torch.optim.LBFGS needs a closure per step')
+        opt = LBFGS(params, lr=optim_cfg['learning_rate'])
+        opt.param_groups[0]['update_count'] = 0
+        return opt
     if key not in _OPTIMIZERS:
         raise ValueError('unsupported optimizer {0}'.format(name))
     kwargs = {'lr': optim_cfg['learning_rate']}

@@ -45,6 +45,14 @@ def _seeded_item(dataset, index: int, seed: int):
         return dataset[index]
 
 
+def host_random(draw):
+    """``draw()``, a draw from the process-wide numpy RNG (the paradigm
+    agents' per-iteration choices), under the loaders' lock: it never lands
+    between an item's seeding and the end of its transforms."""
+    with _RNG_LOCK:
+        return draw()
+
+
 def collate(samples: List[dict]) -> Dict[str, object]:
     batch: Dict[str, object] = {}
     for key in samples[0]:

@@ -185,6 +185,10 @@ class UNet2DURPC(nn.Module):
                         _conv3x3(ft[lvl], class_num))
         self.levels = n
 
+    # the heads' dropout (rate 0.1 x level) draws in train mode even when
+    # the network's rates are all 0: the train step must hand generators
+    draws_in_train = True
+
     def forward(self, x, domain_label: int = 0, dropout_generators=None):
         g = dropout_generators
         n = self.levels

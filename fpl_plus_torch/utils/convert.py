@@ -24,6 +24,11 @@ layout of ``utils/torch_convert.py`` in the JAX package:
 flax ``Conv_0`` .. ``Conv_3`` -> ``convs.{i}``, ``Conv_4`` -> ``out_conv``
 (its InstanceNorms have no parameters).
 
+``state_dict_from_multinet`` bridges a flax ``MultiNet`` (BiNet, TriNet):
+its peers are the scopes ``{Class}_{i}`` (the flax class name of the
+registry network and the peer's index), each converted as above and put
+under ``nets.{i}``.
+
 ``state_dict_from_flax`` serves every other network (the UNet2D and UNet3D
 families, ``AEs``), whose submodules the port names after the flax scopes:
 an explicit scope name is kept, an automatic one shortened (``_SCOPES``,
@@ -174,3 +179,19 @@ def dis_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         sd[name + '.bias'] = np.asarray(conv['bias'])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def state_dict_from_multinet(params: Dict, batch_stats: Dict,
+                             net_cfg: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiNet`` ``(params, batch_stats)`` of peers of
+    ``net_cfg['net_type']`` -> a state dict that the port's ``MultiNet``
+    loads with ``strict=True``."""
+    unet2d5 = net_cfg['net_type'] in ('UNet2D5', 'UNet2D5_dsbn')
+    peers = sorted(params, key=lambda scope: int(scope.rsplit('_', 1)[1]))
+    sd = {}
+    for i, scope in enumerate(peers):
+        stats = (batch_stats or {}).get(scope, {})
+        peer = (state_dict_from_jax(params[scope], stats, net_cfg) if unet2d5
+                else state_dict_from_flax(params[scope], stats))
+        sd.update({'nets.{0}.{1}'.format(i, k): v for k, v in peer.items()})
+    return sd

@@ -179,3 +179,42 @@ def test_cli_refuses_what_is_not_ported(workspace):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_main(['test', cfg])
+
+
+EVALUATION = """
+[evaluation]
+metric_1 = dice
+label_list = [1]
+organ_name = cube
+ground_truth_folder_root = {root}
+test_evaluation_image_pair = {root}/cube_pairs.csv
+"""
+
+
+def test_inference_writes_evaluation_reports(workspace):
+    """``main(['inference', cfg])`` with an ``[evaluation]`` section runs
+    the test stage and then ``eva_main``, as the JAX CLI does: the dice
+    CSV of the written labels against the cubes' ground truth."""
+    import csv
+    root = workspace
+    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(1.0, 1.0, 1.5),
+                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
+    os.makedirs(os.path.join(root, 'd1', 'lab'), exist_ok=True)
+    lab = np.zeros((12, 24, 24), np.int16)
+    lab[4:8, 8:16, 8:16] = 1
+    rows = []
+    for case in range(3):
+        name = 'd1/lab/case{0}.nii.gz'.format(case)
+        write_nifti(NiftiImage(lab, geom), os.path.join(root, name))
+        rows.append('{0},case{1}.nii.gz\n'.format(name, case))
+    with open(os.path.join(root, 'cube_pairs.csv'), 'w') as f:
+        f.write('ground_truth,segmentation\n' + ''.join(rows))
+    cfg = _cfg(root, 'eval.cfg', 'out_eval',
+               extra=EVALUATION.format(root=root))
+    assert torch_main(['inference', cfg], device='cpu') == 0
+    assert len(_labels(root, 'out_eval')) == 3
+    with open(os.path.join(root, 'out_eval', 'gen_d1_test_img',
+                           'test_cube_dice_all.csv')) as f:
+        table = list(csv.reader(f))
+    assert table[0] == ['image', 'class_1'] and len(table) == 3 + 3
+    assert all(0.0 <= float(r[1]) <= 1.0 for r in table[1:])

@@ -322,7 +322,8 @@ def test_resume_restores_optimizer_state_and_schedule(tmp_path):
 
 def test_multistep_schedule_matches_optax():
     """MultiStepLR over update counts, fresh and with a resume offset,
-    against the JAX package's optax schedule (exact)."""
+    against the JAX package's optax schedule (exact); LBFGS builds, with
+    the update count the schedule reads."""
     from fpl_plus_tpu.engine.optim import create_lr_schedule as jax_schedule
     for last_iter in (-1, 0, 3):
         cfg = {'lr_scheduler': 'MultiStepLR', 'learning_rate': 0.1,
@@ -332,9 +333,9 @@ def test_multistep_schedule_matches_optax():
         assert [got(k) for k in range(8)] == pytest.approx(
             [float(ref(k)) for k in range(8)], rel=1e-7)
     assert create_lr_schedule({'lr_scheduler': 'ReduceLROnPlateau'}) is None
-    with pytest.raises(NotImplementedError, match='LBFGS'):
-        create_optimizer({'optimizer': 'LBFGS', 'learning_rate': 1.0},
-                         torch.nn.Linear(2, 2).parameters())
+    lbfgs = create_optimizer({'optimizer': 'LBFGS', 'learning_rate': 1.0},
+                             torch.nn.Linear(2, 2).parameters())
+    assert lbfgs.param_groups[0]['update_count'] == 0
 
 
 def test_manifest_weights_compose(tmp_path):
