@@ -115,12 +115,34 @@ then runs, each phase failing the script on any error:
     ``eva_main``), its resume (the restored teacher equals the saved one),
     ``main_wsl train`` of GatedCRF on scribbles through
     ``PartialLabelToProbability``, and ``main_ssl test`` of a BiNet (CPS):
-    launches equal to 18 x the eval-mode UNet2D5 forwards of each run.
+    launches equal to 18 x the eval-mode UNet2D5 forwards of each run;
+24. NLL steps (``agents/nll.py``): one step of CoTeaching and TriNet and 6
+    of DAST card vs CPU at small widths (SGD, TF32 off, dropout 0, noisy
+    labels): the small-loss masks identical (a voxel may differ only where
+    its CE ties the keep cutoff), DAST's gate sequence identical, loss
+    components, gradients and BN statistics by phase 11's tolerances; then
+    3 steps of each at full width (UNet2D5 at NET_CFG, one domain, 4 crops
+    of [28,128,128], DAST 2 + 2, Adam, the network's dropout): ms per step
+    and peak memory, no kernel launch;
+25. the NLL CLIs at full width on phase 13's workspace: noisy labels from
+    ``python -m fpl_plus_torch.utils.make_noise``; ``cli nll train`` of
+    CoTeaching on them (validation, checkpoints, the auto test stage and
+    ``eva_main``) and of DAST with ``train_csv_noise``; ``cli nll test``
+    of a TriNet checkpoint; ``cli nll_clslsr`` over phase 13's train
+    manifest with its generator checkpoint (the ``slsr_conf/`` maps in {0,
+    255} at the label shapes, the ``_clslsr.csv`` manifest); a 2-iteration
+    ``cli train`` with SLSRLoss on that manifest: launches equal to 18 x
+    the UNet2D5 eval forwards of each run (36 per BiNet forward, 54 per
+    TriNet forward);
+26. classification: ResNet18, VGG16 and MobileNetV2 card vs CPU on one
+    state dict (eval forward, one SGD step; TF32 off); 3 train steps of
+    each at batch 8 x 3 x 224^2 (ms, peak memory); ``cli train`` + ``cli
+    test`` of ResNet18 with ``task_type = cls`` on RGB PNGs and
+    ``main_eval_cls`` on its probabilities: no kernel launch.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23) sets the launch
-counter to 0 just before it and reads it just after. Then it prints one
-``{"kernels": [...]}``
-line and, last, the ok line. It imports nothing of the JAX package. Without
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25, 26) sets the
+launch counter to 0 just before it and reads it just after. Then it prints
+one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
 non-zero and prints no result.
 """
@@ -2365,6 +2387,793 @@ def paradigm_cli_phase(root, fwd_per_volume):
     return results
 
 
+NLL_METHODS = ('CoTeaching', 'TriNet', 'DAST')
+NLL_SECTION = {'co_teaching_select_ratio': 0.8, 'dast_rank_length': 2,
+               'dast_select_ratio': 0.5, 'dast_dbc_w': 0.1, 'dast_st_w': 0.1,
+               'rampup_start': 0, 'rampup_end': 10}
+NLL_CHECK_STEPS = 6                       # DAST: the gates of 6 steps
+# the check's seeds (weights; data is the next seed): DAST's opens its ST
+# gate within the 6 steps, so that the gated term runs on both devices
+NLL_CHECK_SEEDS = {'CoTeaching': SEED + 240, 'TriNet': SEED + 242,
+                   'DAST': SEED + 742}
+# a voxel whose CE ties the keep cutoff within this (absolute; CE ~ 1) may
+# fall on either side of it on the card and on the CPU
+MASK_TIE_TOL = 1e-5
+
+
+def nll_config(method, widths=None, dropout=None, optimizer='Adam'):
+    """The agent config of one NLL method: UNet2D5 at NET_CFG, one domain
+    (a BiNet, or a TriNet of it)."""
+    net = dict(PARADIGM_NET)
+    if widths is not None:
+        net['feature_chns'] = list(widths)
+    if dropout is not None:
+        net['dropout'] = [dropout] * len(net['feature_chns'])
+    return {'dataset': {'task_type': 'seg'}, 'network': net,
+            'training': {'loss_type': 'DiceLoss', 'optimizer': optimizer,
+                         'learning_rate': 1e-4, 'weight_decay': 0.0,
+                         'iter_max': 100},
+            'testing': {},
+            'noisy_label_learning': dict(NLL_SECTION, nll_method=method)}
+
+
+def nll_agent(cfg, net, dev):
+    from fpl_plus_torch.agents.nll import NLLMethodDict
+    from fpl_plus_torch.engine.optim import create_optimizer
+    agent = NLLMethodDict[cfg['noisy_label_learning']['nll_method']](
+        cfg, 'train', dev)
+    agent.module = net.to(dev).train()
+    step = agent._build_step(create_optimizer(cfg['training'],
+                                              net.parameters()), None)
+    return agent, step
+
+
+def nll_net(cfg, method, seed):
+    from fpl_plus_torch.models.multi_net import make_binet, make_trinet
+    net = (make_trinet if method == 'TriNet' else make_binet)(cfg['network'])
+    init_random_(net, seed)
+    return net
+
+
+def noisy_crops(gen, n, crop):
+    """``n`` seeded crops, their labels (the bright voxels), and the same
+    labels with a corner block flipped (label noise)."""
+    x = torch.randn((n, 1) + tuple(crop), generator=gen)
+    lab = (x[:, 0] > 0.5).long()
+    noisy = lab.clone()
+    d, h, w = crop
+    noisy[:, :d // 2, :h // 4, :w // 4] = 1 - noisy[:, :d // 2, :h // 4,
+                                                    :w // 4]
+    def one_hot(t):
+        return F.one_hot(t, 2).movedim(-1, 1).float()
+    return x, one_hot(lab), one_hot(noisy)
+
+
+def nll_batches(method, gen, n, crop):
+    """Host data of one step: ``(batch,)`` of ``n`` crops with noisy labels
+    (CoTeaching, TriNet), or ``{'clean', 'noise'}`` of ``n // 2`` crops
+    each (DAST)."""
+    if method != 'DAST':
+        x, _, noisy = noisy_crops(gen, n, crop)
+        return ({'image': x, 'label_prob': noisy},)
+    x, clean, _ = noisy_crops(gen, n // 2, crop)
+    x1, _, noisy = noisy_crops(gen, n // 2, crop)
+    return {'clean': {'image': x, 'label_prob': clean},
+            'noise': {'image': x1, 'label_prob': noisy}}
+
+
+def batches_to(batches, dev):
+    if isinstance(batches, dict):
+        return {k: {n: t.to(dev) for n, t in v.items()}
+                for k, v in batches.items()}
+    return tuple({n: t.to(dev) for n, t in b.items()} for b in batches)
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """The small-loss masks the NLL steps build in the block, with their
+    per-voxel CE and keep count, on the CPU."""
+    from fpl_plus_torch.agents import nll
+    orig = nll.keep_smallest_mask
+    rec = []
+
+    def recording(values, keep_n):
+        mask = orig(values, keep_n)
+        rec.append((values.cpu(), keep_n, mask.cpu()))
+        return mask
+
+    nll.keep_smallest_mask = recording
+    try:
+        yield rec
+    finally:
+        nll.keep_smallest_mask = orig
+
+
+def masks_agree(got, want):
+    """Voxels whose card and CPU masks differ, and whether every one of
+    them ties the CPU's keep cutoff within MASK_TIE_TOL."""
+    (_, keep_n, m_got), (ce, keep_w, m_want) = got, want
+    check(keep_n == keep_w, 'keep counts {0} vs {1}'.format(keep_n, keep_w))
+    differ = m_got != m_want
+    cutoff = torch.sort(ce).values[max(keep_n - 1, 0)]
+    ties = bool(((ce[differ] - cutoff).abs() <= MASK_TIE_TOL).all())
+    return int(differ.sum()), ties
+
+
+def nll_check(dev):
+    """(24a) One step of CoTeaching and TriNet and 6 of DAST, card vs CPU
+    at small widths: SGD at 0.01 (DAST's selection scores then move from
+    step to step by far more than the card and the CPU differ, so that the
+    rank queues decide alike), TF32 off, dropout 0, heads scaled
+    (``scale_heads_``), 2 crops of PARADIGM_CROP with noisy labels (DAST 1
+    + 1). The small-loss masks identical (a voxel may differ only where
+    its CE ties the keep cutoff within MASK_TIE_TOL), DAST's gate sequence
+    identical; the first step's loss components, gradients and BN
+    statistics by phase 11's tolerances."""
+    results = {}
+    for method in NLL_METHODS:
+        cfg = nll_config(method, ZOO_SMALL, 0.0, 'SGD')
+        cfg['training']['learning_rate'] = 0.01
+        net = nll_net(cfg, method, NLL_CHECK_SEEDS[method])
+        scale_heads_(net)
+        host = nll_batches(method, torch.Generator().manual_seed(
+            NLL_CHECK_SEEDS[method] + 10), 2, PARADIGM_CROP)
+        steps = NLL_CHECK_STEPS if method == 'DAST' else 1
+        out = []
+        for where in (dev, torch.device('cpu')):
+            agent, step = nll_agent(cfg, copy.deepcopy(net), where)
+            batches = batches_to(host, where)
+            gates, first = [], None
+            with tf32_off(), recorded_masks() as masks:
+                for it in range(steps):
+                    hyper = agent.training_hyper(PARADIGM_IT + it)
+                    gates.append(tuple(sorted(hyper.items())))
+                    m = step(batches, agent._step_generators(PARADIGM_IT),
+                             **hyper)
+                    if it == 0:      # copies: later steps update in place
+                        module = agent.module
+                        first = {
+                            'metrics': {k: v.cpu().clone()
+                                        for k, v in m.items()},
+                            'grads': {k: p.grad.cpu().clone() for k, p in
+                                      module.named_parameters()},
+                            'stats': {k: b.cpu().clone() for k, b in
+                                      module.named_buffers() if k.endswith(
+                                          ('running_mean', 'running_var'))}}
+                if where.type == 'cuda':
+                    torch.cuda.synchronize()
+            out.append(dict(first, gates=gates, masks=masks))
+        got, want = out
+        keys = [k for k in want['metrics'] if k != 'class_dice_0']
+        loss_err = max(abs(float(got['metrics'][k] - want['metrics'][k]))
+                       for k in keys)
+        dice_err = float((got['metrics']['class_dice_0']
+                          - want['metrics']['class_dice_0']).abs().max())
+        top = max(float(g.abs().max()) for g in want['grads'].values())
+        worst, worst_name = 0.0, None
+        for name, g in got['grads'].items():
+            ref = want['grads'][name]
+            ratio = float((g - ref).abs().max()) / (
+                GRAD_RTOL * float(ref.abs().max()) + GRAD_NET_TOL * top)
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        stats_err = max(float((got['stats'][k] - b).abs().max())
+                        / max(float(b.abs().max()), 1e-12)
+                        for k, b in want['stats'].items())
+        mask_diff = [masks_agree(a, b) for a, b in zip(got['masks'],
+                                                       want['masks'])]
+        check(len(got['masks']) == len(want['masks']),
+              '{0}: {1} vs {2} masks'.format(method, len(got['masks']),
+                                             len(want['masks'])))
+        open_gates = sum(1 for g in want['gates']
+                         if dict(g).get('w_dbc') or dict(g).get('w_st'))
+        print('nll {0} card vs CPU (widths {1}, crop {2}, SGD, TF32 off, {3} '
+              'step(s)): loss {4!r} vs {5!r}, max abs err of {6} {7:.3g} '
+              '(tolerance {8}); class dice err {9:.3g}; worst gradient {10} '
+              'at {11:.3g} of its tolerance; BN statistics max rel err '
+              '{12:.3g}; masks differing voxels {13} (all at a tie of the '
+              'cutoff: {14}); {15}'.format(
+                  method, ZOO_SMALL, list(PARADIGM_CROP), steps,
+                  float(got['metrics']['loss']),
+                  float(want['metrics']['loss']), '/'.join(keys), loss_err,
+                  STEP_LOSS_TOL, dice_err, worst_name, worst, stats_err,
+                  [d for d, _ in mask_diff], all(t for _, t in mask_diff),
+                  'gates per step {0}'.format([dict(g) for g in
+                                               want['gates']])
+                  if method == 'DAST' else 'remb_ratio {0}'.format(
+                      dict(want['gates'][0])['remb_ratio'])))
+        check(loss_err <= STEP_LOSS_TOL, 'nll {0} loss disagrees'.format(
+            method))
+        check(dice_err <= STEP_DICE_TOL, 'nll {0} dice disagrees'.format(
+            method))
+        check(worst <= 1.0, 'nll {0} gradient {1} disagrees'.format(
+            method, worst_name))
+        check(stats_err <= STATS_TOL, 'nll {0} BN statistics disagree'.format(
+            method))
+        check(all(d == 0 or t for d, t in mask_diff),
+              'nll {0} masks disagree off the cutoff: {1}'.format(
+                  method, mask_diff))
+        check(got['gates'] == want['gates'], 'nll {0} gates {1} vs {2}'.format(
+            method, got['gates'], want['gates']))
+        check(method != 'DAST' or open_gates > 0,
+              'DAST opened no gate in {0} steps'.format(steps))
+        results[method] = {'loss_err': loss_err, 'grad_worst': worst,
+                           'stats_err': stats_err,
+                           'mask_diff': [d for d, _ in mask_diff],
+                           'open_gates': open_gates}
+    return results
+
+
+def nll_timed(dev, macs):
+    """(24b) Each NLL method for PARADIGM_STEPS steps at full width:
+    UNet2D5 at NET_CFG (one domain), 4 crops of WINDOW with noisy labels
+    (DAST 2 clean + 2 noisy), Adam, the network's dropout; CUDA-event ms
+    per step (median of steps 2-3), peak memory, TFLOP reckoned from phase
+    3's MACs (4 rows x 3 per peer). No kernel launch."""
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+    results = {}
+    for i, method in enumerate(NLL_METHODS):
+        cfg = nll_config(method)
+        net = nll_net(cfg, method, SEED + 260 + i)
+        agent, step = nll_agent(cfg, net, dev)
+        batches = batches_to(nll_batches(method, torch.Generator()
+                                         .manual_seed(SEED + 270 + i), 4,
+                                         WINDOW), dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for k in range(PARADIGM_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(batches, agent._step_generators(k),
+                     **agent.training_hyper(k))
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m['loss']))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(np.isfinite(losses).all(), 'nll {0} losses {1}'.format(
+            method, losses))
+        med = float(np.median(ms[1:]))
+        peers = 3 if method == 'TriNet' else 2
+        tflop = 2 * macs * 3 * 4 * peers / 1e12
+        results[method] = {'ms': med, 'ms_all': ms, 'peak_gib': peak,
+                           'tflop': tflop, 'losses': losses}
+        print('nll {0} step at full width (UNet2D5 x {1} peers, {2} crops '
+              '{3}): {4:.2f} ms (median of steps 2-{5}; all {6}), peak '
+              '{7:.2f} GiB, {8:.2f} TFLOP reckoned, {9:.1f} TFLOP/s, losses '
+              '{10}'.format(method, peers, '2 + 2' if method == 'DAST'
+                            else '4', WINDOW, med, PARADIGM_STEPS,
+                            ['{0:.1f}'.format(t) for t in ms], peak, tflop,
+                            tflop / med * 1e3,
+                            ['{0:.4f}'.format(v) for v in losses]))
+        del step, agent, net, batches
+        torch.cuda.empty_cache()
+    check(dsbn_prelu.launches == before, 'the NLL steps launched the '
+          'DSBN+PReLU kernel')
+    return results
+
+
+NLL_CLI_CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+train_csv = {root}/{train_csv}
+train_csv_noise = {root}/d1_train_noisy.csv
+valid_csv = {root}/d1_valid.csv
+test_csv = {root}/target_test.csv
+train_batch_size = 2
+train_batch_size_noise = 2
+train_transform = [NormalizeWithMeanStd, Pad, RandomCrop, RandomFlip, LabelToProbability]
+valid_transform = [NormalizeWithMeanStd, Pad, LabelToProbability]
+test_transform = [NormalizeWithMeanStd, Pad]
+NormalizeWithMeanStd_channels = [0]
+Pad_output_size = {window}
+RandomCrop_output_size = {window}
+RandomCrop_foreground_focus = False
+RandomFlip_flip_depth = False
+RandomFlip_flip_height = True
+RandomFlip_flip_width = True
+
+[network]
+net_type = {net_type}
+num_domains = {domains}
+class_num = 2
+in_chns = 1
+feature_chns = {widths}
+conv_dims = [2, 2, 3, 3, 3]
+dropout = [0.0, 0.0, 0.3, 0.4, 0.5]
+bilinear = False
+
+[training]
+loss_type = {loss}
+{loss_extra}
+optimizer = Adam
+learning_rate = 1e-4
+weight_decay = 1e-5
+lr_scheduler = None
+iter_max = {stop}
+iter_valid = 2
+iter_save = 2
+random_seed = 3
+ckpt_save_dir = {root}/model/{tag}
+
+[testing]
+ckpt_mode = {mode}
+{ckpt_name}
+domian_label = {domain}
+output_dir = {root}/out_{tag}
+sliding_window_enable = True
+sliding_window_size = {window}
+sliding_window_stride = {window}
+tta_mode = 1
+patch_chunk = 2
+cl_type = both
+
+[noisy_label_learning]
+nll_method = {method}
+co_teaching_select_ratio = 0.8
+dast_rank_length = 2
+dast_select_ratio = 0.5
+rampup_start = 0
+rampup_end = 4
+{evaluation}
+"""
+
+
+def nll_cli_cfg(root, tag, method='CoTeaching', stop=4,
+                train_csv='d1_train_noisy.csv', loss='DiceLoss',
+                loss_extra='', evaluation='', clslsr=False):
+    """One run's config: checkpoints under ``model/{tag}``, labels under
+    ``out_{tag}``. ``clslsr``: phase 13's generator (UNet2D5_dsbn, two
+    banks, ``train_4.pt``) read on domain 1."""
+    cfg = os.path.join(root, 'nll_{0}.cfg'.format(tag))
+    net = NET_CFG if clslsr else PARADIGM_NET
+    with open(cfg, 'w') as f:
+        f.write(NLL_CLI_CFG.format(
+            root=root, train_csv=train_csv, window=list(WINDOW),
+            net_type=net['net_type'], domains=net['num_domains'],
+            widths=net['feature_chns'], loss=loss, loss_extra=loss_extra,
+            stop=stop, tag=tag, mode=2 if clslsr else 0,
+            ckpt_name='ckpt_name = {0}/model/train/train_4.pt'.format(root)
+            if clslsr else '', domain=DOMAIN if clslsr else 0,
+            method=method, evaluation=evaluation))
+    return cfg
+
+
+def write_noisy_labels(root):
+    """(25a) ``python -m fpl_plus_torch.utils.make_noise`` over phase 13's
+    label volumes into ``lab_noisy/``, and ``d1_train_noisy.csv``."""
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'fpl_plus_torch.utils.make_noise',
+         os.path.join(root, 'lab'), os.path.join(root, 'lab_noisy'),
+         '--seed', str(SEED % 10000)], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, 'make_noise rc {0}: {1}'.format(
+        proc.returncode, proc.stderr[-2000:]))
+    rows = list(csv.reader(open(os.path.join(root, 'd1_train.csv'))))[1:]
+    changed = []
+    with open(os.path.join(root, 'd1_train_noisy.csv'), 'w') as f:
+        f.write('image,label\n')
+        for image, label in rows:
+            noisy = label.replace('lab/', 'lab_noisy/')
+            f.write('{0},{1}\n'.format(image, noisy))
+            a = load_image_as_nd_array(os.path.join(root, label))
+            b = load_image_as_nd_array(os.path.join(root, noisy))
+            check(a['data_array'].shape == b['data_array'].shape,
+                  'noisy label shape')
+            changed.append(int((a['data_array'] != b['data_array']).sum()))
+    check(sum(changed) > 0, 'make_noise changed no voxel')
+    print('make_noise: {0} ({1:.1f} s): voxels changed per label {2}'.format(
+        proc.stdout.strip(), wall, changed))
+    return changed
+
+
+def check_conf_maps(root, csv_name):
+    """(25d) The ``slsr_conf/`` maps of a manifest's labels: present, in
+    {0, 255}, of the label volumes' shapes; the ``_clslsr.csv`` rows."""
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    rows = list(csv.reader(open(os.path.join(root, csv_name))))[1:]
+    flagged = []
+    for _, label in rows:
+        conf = load_image_as_nd_array(os.path.join(
+            root, 'slsr_conf', os.path.basename(label)))['data_array']
+        lab = load_image_as_nd_array(os.path.join(root, label))['data_array']
+        check(conf.shape == lab.shape, 'map shape {0} vs label {1}'.format(
+            conf.shape, lab.shape))
+        check(set(np.unique(conf).tolist()) <= {0, 255}, 'map values')
+        flagged.append(int((conf > 0).sum()))
+    manifest = list(csv.reader(open(os.path.join(
+        root, csv_name.replace('.csv', '_clslsr.csv')))))
+    check(manifest[0] == ['image', 'pixel_weight', 'label']
+          and [r[0] for r in manifest[1:]] == [r[0] for r in rows]
+          and all(r[1] == 'slsr_conf/' + os.path.basename(r[2])
+                  for r in manifest[1:]), 'manifest {0}'.format(manifest))
+    return flagged
+
+
+def nll_cli_phase(root, fwd_per_volume):
+    """(25) The NLL CLIs at full width on phase 13's workspace: the noisy
+    labels; ``cli nll train`` of CoTeaching on them (4 iterations,
+    validation and checkpoints every 2, the auto test stage and
+    ``eva_main``); ``cli nll train`` of DAST with ``train_csv_noise``;
+    ``cli nll test`` of a seeded TriNet checkpoint; ``cli nll_clslsr`` over
+    phase 13's train manifest with its generator checkpoint; a 2-iteration
+    ``cli train`` with SLSRLoss on the written manifest. Each run's
+    launches equal 18 x the UNet2D5 eval forwards (a BiNet forward: 2 of
+    them, 36 launches; a TriNet's: 3, 54 launches)."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.agents.nll import CoTeachingStep, DASTStep
+    from fpl_plus_torch.engine.train import AlternatingTrainStep
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.models.multi_net import make_trinet
+    changed = write_noisy_labels(root)
+    trinet = make_trinet(PARADIGM_NET)
+    init_random_(trinet, SEED + 235)
+    os.makedirs(os.path.join(root, 'model', 'trinet'))
+    torch.save({'iteration': 1, 'valid_pred': 0.0,
+                'model_state_dict': trinet.state_dict()},
+               os.path.join(root, 'model', 'trinet', 'trinet_1.pt'))
+    with open(os.path.join(root, 'model', 'trinet', 'trinet_latest.txt'),
+              'w') as f:
+        f.write('1')
+    runs = {
+        # tag: (main, argv, train steps, validations, peers, test volumes)
+        'cot': (cli.main_nll, ['train', nll_cli_cfg(
+            root, 'cot', evaluation=EVAL_SECTION.format(root=root))], 4, 2,
+            2, N_VOLUMES, CoTeachingStep),
+        'dast': (cli.main_nll, ['train', nll_cli_cfg(
+            root, 'dast', 'DAST', 2, train_csv='d1_train.csv')], 2, 1, 2,
+            N_VOLUMES, DASTStep),
+        'trinet': (cli.main_nll, ['test', nll_cli_cfg(
+            root, 'trinet', 'TriNet')], 0, 0, 3, N_VOLUMES, None),
+        'clslsr': (cli.main_nll_clslsr, ['test', nll_cli_cfg(
+            root, 'clslsr', train_csv='d1_train.csv', clslsr=True)], 0, 0, 1,
+            N_VOLUMES, None),
+        'slsr': (cli.main, ['train', nll_cli_cfg(
+            root, 'slsr', stop=2, train_csv='d1_train_clslsr.csv',
+            loss='SLSRLoss',
+            loss_extra='train_fpl_uda = True\nslsrloss_epsilon = 0.25')],
+            2, 1, 1, N_VOLUMES, AlternatingTrainStep),
+    }
+    results = {}
+    for tag, (main, argv, steps, validations, peers, tests, step_cls) in \
+            runs.items():
+        step_ms, valid_ms, eval_s = [], [], []
+        with contextlib.ExitStack() as stack:
+            if step_cls is not None:
+                stack.enter_context(timed_method(step_cls, '__call__',
+                                                 step_ms))
+            stack.enter_context(timed_method(SegmentationAgent, 'validation',
+                                             valid_ms))
+            stack.enter_context(timed_function(cli, 'eva_main', eval_s))
+            forwards = stack.enter_context(counting_forwards())
+            torch.cuda.reset_peak_memory_stats()
+            dsbn_prelu.launches = 0      # this path's count starts here
+            t0 = time.perf_counter()
+            rc = main(argv)
+            wall = time.perf_counter() - t0
+            launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_eval = (validations * N_VOLUMES + tests) * fwd_per_volume * peers
+        check(rc == 0, 'nll cli {0} rc {1}'.format(tag, rc))
+        check(len(step_ms) == steps, 'nll cli {0}: {1} steps'.format(
+            tag, len(step_ms)))
+        check(forwards[0] == n_eval and launches == 18 * forwards[0]
+              and launches > 0, 'nll cli {0}: {1} eval forwards (expected '
+              '{2}), {3} launches'.format(tag, forwards[0], n_eval,
+                                          launches))
+        if tag != 'clslsr':
+            labels = [n for n in os.listdir(os.path.join(
+                root, 'out_' + tag, tag + '_target_test'))
+                if n.endswith('.nii.gz')]
+            check(len(labels) == N_VOLUMES, 'nll cli {0} labels {1}'.format(
+                tag, labels))
+        results[tag] = {'launches': launches, 'forwards': forwards[0],
+                        'step_ms': step_ms, 'valid_ms': valid_ms,
+                        'eval_s': eval_s, 'wall_s': wall, 'peak_gib': peak}
+        print('nll cli {0} ({1} {2}): {3} steps at {4} ms, {5} validations '
+              'at {6} ms ({7} volumes each), eva_main {8}, {9} eval '
+              'forwards, {10} kernel launches, peak {11:.2f} GiB, {12:.1f} s '
+              'wall'.format(tag, main.__name__, argv[0], len(step_ms),
+                            ['{0:.1f}'.format(t) for t in step_ms],
+                            len(valid_ms),
+                            ['{0:.1f}'.format(t) for t in valid_ms],
+                            N_VOLUMES,
+                            ['{0:.2f} s'.format(t) for t in eval_s],
+                            forwards[0], launches, peak, wall))
+        if tag == 'clslsr':
+            flagged = check_conf_maps(root, 'd1_train.csv')
+            results[tag]['flagged'] = flagged
+            print('nll cli clslsr: slsr_conf maps of {0} labels in {{0, 255}} '
+                  'at the label shape {1}; voxels flagged noisy per volume '
+                  '{2}; manifest d1_train_clslsr.csv'.format(
+                      len(flagged), list(VOLUME), flagged))
+    dice = read_csv(os.path.join(root, 'out_cot', 'cot_target_test',
+                                 'test_block_dice_all.csv'))
+    check(len(dice) == N_VOLUMES + 3 and all(
+        np.isfinite(float(r[1])) for r in dice[1:]), 'dice {0}'.format(dice))
+    results['noise_changed'] = changed
+    return results
+
+
+CLS_ARCHS = ('resnet18', 'vgg16', 'mobilenetv2')
+CLS_CHECK_HW = 64                          # the card-vs-CPU check's images
+# the cls nets' running statistics after one step, card vs CPU: 0.1 x the
+# batch moments of activations that the two compute in other orders
+# through up to 52 layers, held like the forward's activations (phase 3's
+# FWD_TOL, against the tensor's max |value|). MobileNetV2's differed by
+# 1.98e-05 of that on an NVIDIA H100 80GB HBM3 at 700 W (its eval logits
+# by 1.9e-05 of theirs), over the UNet2D5 steps' STATS_TOL.
+CLS_STATS_TOL = FWD_TOL
+CLS_HW, CLS_BATCH = 224, 8                 # the timed steps
+
+
+def cls_net(arch, seed, class_num=2, chns=3):
+    from fpl_plus_torch.models.cls_nets import TorchClsNetDict
+    net = TorchClsNetDict[arch]({'class_num': class_num, 'input_chns': chns})
+    init_random_(net, seed)
+    return net
+
+
+def cls_check(dev):
+    """(26a) Each cls net card vs CPU on one state dict, TF32 off: an eval
+    forward of 2 RGB images of CLS_CHECK_HW (phase 3's tolerance) and one
+    SGD step in train mode without dropout generators (no dropout drawn):
+    loss and gradients by phase 11's tolerances, BN statistics by
+    CLS_STATS_TOL."""
+    from fpl_plus_torch.losses.cls import CrossEntropyLoss
+    results = {}
+    gen = torch.Generator().manual_seed(SEED + 280)
+    x = torch.randn((2, 3, CLS_CHECK_HW, CLS_CHECK_HW), generator=gen)
+    labels = torch.tensor([0, 1])
+    for i, arch in enumerate(CLS_ARCHS):
+        net = cls_net(arch, SEED + 290 + i)
+        out = []
+        for where in (dev, torch.device('cpu')):
+            m = copy.deepcopy(net).to(where)
+            with tf32_off():
+                with torch.no_grad():
+                    logits = m.eval()(x.to(where)).cpu()
+                m.train()
+                opt = torch.optim.SGD(m.parameters(), lr=0.01)
+                opt.zero_grad()
+                loss = CrossEntropyLoss()({'prediction': m(x.to(where)),
+                                           'ground_truth': labels.to(where)})
+                loss.backward()
+                opt.step()
+            out.append({'logits': logits, 'loss': float(loss.detach()),
+                        'grads': {k: p.grad.cpu()
+                                  for k, p in m.named_parameters()},
+                        'stats': {k: b.cpu() for k, b in m.named_buffers()
+                                  if k.endswith(('running_mean',
+                                                 'running_var'))}})
+        got, want = out
+        fwd_err = float((got['logits'] - want['logits']).abs().max())
+        scale = float(want['logits'].abs().max())
+        top = max(float(g.abs().max()) for g in want['grads'].values())
+        worst, worst_name = 0.0, None
+        for name, g in got['grads'].items():
+            ref = want['grads'][name]
+            ratio = float((g - ref).abs().max()) / (
+                GRAD_RTOL * float(ref.abs().max()) + GRAD_NET_TOL * top)
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        stats_err = max((float((got['stats'][k] - b).abs().max())
+                         / max(float(b.abs().max()), 1e-12)
+                         for k, b in want['stats'].items()), default=0.0)
+        loss_err = abs(got['loss'] - want['loss'])
+        print('cls {0} card vs CPU ({1}x{1}, TF32 off): eval logits max abs '
+              'err {2:.3g} (|logit| max {3:.3g}); SGD step loss {4!r} vs '
+              '{5!r}, err {6:.3g}; worst gradient {7} at {8:.3g} of its '
+              'tolerance; BN statistics max rel err {9:.3g}'.format(
+                  arch, CLS_CHECK_HW, fwd_err, scale, got['loss'],
+                  want['loss'], loss_err, worst_name, worst, stats_err))
+        check(fwd_err <= FWD_TOL * max(1.0, scale), 'cls {0} forward '
+              'disagrees'.format(arch))
+        check(loss_err <= STEP_LOSS_TOL, 'cls {0} loss disagrees'.format(arch))
+        check(worst <= 1.0, 'cls {0} gradient {1} disagrees'.format(
+            arch, worst_name))
+        check(stats_err <= CLS_STATS_TOL, 'cls {0} BN statistics '
+              'disagree'.format(arch))
+        results[arch] = {'fwd_err': fwd_err, 'grad_worst': worst,
+                         'stats_err': stats_err}
+    return results
+
+
+def cls_timed(dev):
+    """(26b) Each cls net through the agent's ``train_step`` at
+    CLS_BATCH x 3 x CLS_HW^2, Adam, its dropout: CUDA-event ms per step
+    (median of steps 2-3), peak memory, TFLOP reckoned from the module
+    shapes (forward MACs x 2 x 3). No kernel launch."""
+    from fpl_plus_torch.agents.agent_cls import ClassificationAgent
+    from fpl_plus_torch.engine.optim import create_optimizer
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+    gen = torch.Generator().manual_seed(SEED + 300)
+    x = torch.randn((CLS_BATCH, 3, CLS_HW, CLS_HW), generator=gen).to(dev)
+    labels = torch.randint(0, 2, (CLS_BATCH,), generator=gen).to(dev)
+    results = {}
+    for i, arch in enumerate(CLS_ARCHS):
+        cfg = {'dataset': {'task_type': 'cls'},
+               'network': {'net_type': arch, 'class_num': 2,
+                           'input_chns': 3},
+               'training': {'optimizer': 'Adam', 'learning_rate': 1e-4,
+                            'weight_decay': 0.0,
+                            'loss_type': 'CrossEntropyLoss'},
+               'testing': {}}
+        agent = ClassificationAgent(cfg, 'train', dev)
+        agent.module = cls_net(arch, SEED + 310 + i).to(dev)
+        with counting_macs(agent.module) as macs, torch.no_grad():
+            agent.module.eval()(x[:1])
+        agent.module.train()
+        optimizer = create_optimizer(cfg['training'],
+                                     agent.module.parameters())
+        loss_calc = agent._loss_calculator()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for k in range(PARADIGM_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _ = agent.train_step(optimizer, loss_calc, x, labels, k)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(np.isfinite(losses).all(), 'cls {0} losses {1}'.format(
+            arch, losses))
+        med = float(np.median(ms[1:]))
+        tflop = 2 * macs[0] * CLS_BATCH * 3 / 1e12
+        results[arch] = {'ms': med, 'ms_all': ms, 'peak_gib': peak,
+                         'tflop': tflop}
+        print('cls {0} train step (batch {1} x 3 x {2}^2, Adam): {3:.2f} ms '
+              '(median of steps 2-{4}; all {5}), peak {6:.2f} GiB, {7:.3f} '
+              'TFLOP reckoned, {8:.1f} TFLOP/s, losses {9}'.format(
+                  arch, CLS_BATCH, CLS_HW, med, PARADIGM_STEPS,
+                  ['{0:.1f}'.format(t) for t in ms], peak, tflop,
+                  tflop / med * 1e3, ['{0:.4f}'.format(v) for v in losses]))
+        del agent, optimizer
+        torch.cuda.empty_cache()
+    check(dsbn_prelu.launches == before, 'the cls steps launched the '
+          'DSBN+PReLU kernel')
+    return results
+
+
+CLS_CLI_CFG = """
+[dataset]
+task_type = cls
+root_dir = {root}
+modal_num = 1
+train_csv = {root}/cls_train.csv
+valid_csv = {root}/cls_valid.csv
+test_csv = {root}/cls_test.csv
+train_batch_size = 8
+
+[network]
+net_type = resnet18
+class_num = 2
+input_chns = 3
+
+[training]
+loss_type = CrossEntropyLoss
+optimizer = Adam
+learning_rate = 1e-3
+weight_decay = 0.0
+lr_scheduler = ReduceLROnPlateau
+lr_gamma = 0.5
+ReduceLROnPlateau_patience = 6
+iter_max = 6
+iter_valid = 3
+random_seed = 3
+ckpt_save_dir = {root}/model/cls
+
+[testing]
+ckpt_mode = 1
+output_csv = {root}/cls_pred.csv
+save_probability = True
+
+[evaluation]
+task_type = cls
+metric_list = [accuracy, recall, specificity, precision, auc]
+ground_truth_csv = {root}/cls_test_gt.csv
+predict_prob_csv = {root}/cls_pred_prob.csv
+"""
+
+
+def write_cls_workspace(root, n=40, hw=CLS_CHECK_HW):
+    """``n`` seeded RGB PNGs, bright (label 1) or dark (label 0), split
+    24 / 8 / 8 into the train, valid and test manifests (and the test
+    labels for ``main_eval_cls``)."""
+    from PIL import Image
+    rs = np.random.RandomState(SEED + 320)
+    os.makedirs(os.path.join(root, 'cls_img'))
+    rows = []
+    for i in range(n):
+        label = i % 2
+        img = np.clip(rs.normal(80 + 90 * label, 30, (hw, hw, 3)), 0,
+                      255).astype(np.uint8)
+        name = 'cls_img/c{0}.png'.format(i)
+        Image.fromarray(img).save(os.path.join(root, name))
+        rows.append((name, label))
+    splits = {'cls_train': rows[:24], 'cls_valid': rows[24:32],
+              'cls_test_gt': rows[32:]}
+    for split, part in splits.items():
+        with open(os.path.join(root, split + '.csv'), 'w') as f:
+            f.write('image,label\n' + ''.join('{0},{1}\n'.format(*r)
+                                              for r in part))
+    with open(os.path.join(root, 'cls_test.csv'), 'w') as f:
+        f.write('image\n' + ''.join(r[0] + '\n' for r in rows[32:]))
+    with open(os.path.join(root, 'cls.cfg'), 'w') as f:
+        f.write(CLS_CLI_CFG.format(root=root))
+    return os.path.join(root, 'cls.cfg')
+
+
+def cls_cli_phase(root):
+    """(26c) ``cli train`` of ResNet18 with ``task_type = cls`` on RGB PNGs
+    (6 iterations of 8, validation and checkpoints every 3, the plateau
+    controller), ``cli test`` from the best checkpoint (the output and
+    probability CSVs; at least 6 of the 8 test images classed right),
+    ``main_eval_cls`` on them; no kernel launch."""
+    import PIL
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_cls import ClassificationAgent
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    print('cls cli: PIL {0} imports on this host; the workspace is PNG '
+          'images'.format(PIL.__version__))
+    cfg = write_cls_workspace(root)
+    step_ms = []
+    t0 = time.perf_counter()
+    with timed_method(ClassificationAgent, 'train_step', step_ms):
+        dsbn_prelu.launches = 0          # this path's count starts here
+        rc_train = cli.main(['train', cfg])
+        rc_test = cli.main(['test', cfg])
+        launches = dsbn_prelu.launches
+    wall = time.perf_counter() - t0
+    check(rc_train == 0 and rc_test == 0, 'cls cli rc {0} / {1}'.format(
+        rc_train, rc_test))
+    check(len(step_ms) == 6, 'cls cli steps {0}'.format(len(step_ms)))
+    check(launches == 0, 'cls cli launched the kernel {0} times'.format(
+        launches))
+    model = os.path.join(root, 'model', 'cls')
+    check({'cls_3.pt', 'cls_6.pt', 'cls_best.txt', 'cls_latest.txt'}
+          <= set(os.listdir(model)), 'cls checkpoints {0}'.format(
+              sorted(os.listdir(model))))
+    pred = read_csv(os.path.join(root, 'cls_pred.csv'))
+    prob = read_csv(os.path.join(root, 'cls_pred_prob.csv'))
+    check(pred[0] == ['image', 'label'] and len(pred) == 9
+          and all(r[1] in ('0', '1') for r in pred[1:]),
+          'cls predictions {0}'.format(pred[:3]))
+    check(prob[0] == ['image', 'prob0', 'prob1'] and len(prob) == 9
+          and all(abs(float(r[1]) + float(r[2]) - 1) < 1e-5
+                  for r in prob[1:]), 'cls probabilities {0}'.format(
+                      prob[:3]))
+    check(cli.main_eval_cls([os.path.join(root, 'cls.cfg')]) == 0,
+          'main_eval_cls')
+    report = read_csv(os.path.join(root, 'cls_pred_prob_eval.csv'))
+    check([r[0] for r in report] == ['accuracy', 'recall', 'specificity',
+                                     'precision', 'auc']
+          and all(0.0 <= float(r[1]) <= 1.0 for r in report),
+          'cls report {0}'.format(report))
+    gt = read_csv(os.path.join(root, 'cls_test_gt.csv'))[1:]
+    acc = float(np.mean([p[1] == g[1] for p, g in zip(pred[1:], gt)]))
+    check(acc >= 0.75, 'cls cli learnt no bright/dark split: test accuracy '
+          '{0}'.format(acc))
+    print('cls cli: train steps {0} ms, {1} kernel launches, test '
+          'accuracy {2:.3f}, report {3}, {4:.1f} s wall'.format(
+              ['{0:.1f}'.format(t) for t in step_ms], launches, acc,
+              {r[0]: float(r[1]) for r in report}, wall))
+    return {'launches': launches, 'step_ms': step_ms, 'report': report,
+            'wall_s': wall}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -2414,6 +3223,12 @@ def main():
         wsl_check = paradigm_check('wsl', dev)
         wsl_timed = paradigm_timed('wsl', dev, macs)
         paradigm_cli = paradigm_cli_phase(ws, fwd_per_volume)
+        nll_steps_check = nll_check(dev)
+        nll_steps = nll_timed(dev, macs)
+        nll_cli = nll_cli_phase(ws, fwd_per_volume)
+        cls_steps_check = cls_check(dev)
+        cls_steps = cls_timed(dev)
+        cls_cli = cls_cli_phase(ws)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -2481,6 +3296,12 @@ def main():
         for m, r in steps.items():
             print('{0} summary {1}: step {2:.2f} ms, peak {3:.2f} GiB'.format(
                 paradigm, m, r['ms'], r['peak_gib']))
+    for m, r in nll_steps.items():
+        print('nll summary {0}: step {1:.2f} ms, peak {2:.2f} GiB'.format(
+            m, r['ms'], r['peak_gib']))
+    for m, r in cls_steps.items():
+        print('cls summary {0}: step {1:.2f} ms, peak {2:.2f} GiB'.format(
+            m, r['ms'], r['peak_gib']))
     print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
           '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
           'card vs CPU gradient max rel err {5:.3g}'.format(
@@ -2497,7 +3318,10 @@ def main():
                      + sum(r['launches'] for r in variants.values())
                      + sum(r['launches'] for k, r in paths.items()
                            if isinstance(r, dict))
-                     + sum(r['launches'] for r in paradigm_cli.values())),
+                     + sum(r['launches'] for r in paradigm_cli.values())
+                     + sum(r['launches'] for r in nll_cli.values()
+                           if isinstance(r, dict))
+                     + cls_cli['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -2543,6 +3367,19 @@ def main():
         'paradigm_check_grad_worst': max(
             r['grad_worst'] for r in list(ssl_check.values())
             + list(wsl_check.values())),
+        'nll_cli_launches': {t: r['launches'] for t, r in nll_cli.items()
+                             if isinstance(r, dict)},
+        'nll_step_ms': {m: r['ms'] for m, r in nll_steps.items()},
+        'nll_peak_gib': {m: r['peak_gib'] for m, r in nll_steps.items()},
+        'nll_check_grad_worst': max(r['grad_worst']
+                                    for r in nll_steps_check.values()),
+        'nll_check_mask_diff': {m: r['mask_diff']
+                                for m, r in nll_steps_check.items()},
+        'cls_cli_launches': cls_cli['launches'],
+        'cls_step_ms': {m: r['ms'] for m, r in cls_steps.items()},
+        'cls_peak_gib': {m: r['peak_gib'] for m, r in cls_steps.items()},
+        'cls_check_grad_worst': max(r['grad_worst']
+                                    for r in cls_steps_check.values()),
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

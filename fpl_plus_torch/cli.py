@@ -12,16 +12,25 @@ on the card (``cuda:0``) unless ``--device`` (or ``main(..., device=...)``)
 names another device; without a card and without ``--device cpu`` it
 raises.
 
-``main_ssl`` / ``main_wsl`` (``python -m fpl_plus_torch.cli ssl ...`` /
-``wsl ...``, the reference's ``pymic_ssl`` / ``pymic_wsl``) take the same
-arguments and run the agent of ``[semi_supervised_learning] ssl_method`` /
-``[weakly_supervised_learning] wsl_method`` (an unknown method raises
-``ValueError``) through the same stages; the JAX package's paradigm CLI
-runs the named stage alone.
+``[dataset] task_type`` picks the agent: ``seg`` the segmentation agent,
+``cls`` / ``cls_nexcl`` the classification agent, which runs the named
+stage alone (no auto test stage and no ``eva_main``, as in the JAX
+package's CLI).
+
+``main_ssl`` / ``main_wsl`` / ``main_nll`` (``python -m fpl_plus_torch.cli
+ssl ...`` / ``wsl ...`` / ``nll ...``, the reference's ``pymic_ssl`` /
+``pymic_wsl`` / ``pymic_nll``) take the same arguments and run the agent of
+``[semi_supervised_learning] ssl_method`` / ``[weakly_supervised_learning]
+wsl_method`` / ``[noisy_label_learning] nll_method`` (an unknown method
+raises ``ValueError``) through the same stages; the JAX package's paradigm
+CLI runs the named stage alone. ``main_nll_clslsr`` (``... nll_clslsr
+[stage] cfg``) runs the CLSLSR confidence-map stage: ``slsr_conf/`` maps
+and the ``<train_csv>_clslsr.csv`` manifest.
 
 ``main_eval_seg`` (``python -m fpl_plus_torch.metrics cfg``) runs the
-evaluation reports alone (the reference's ``pymic_eval_seg``); it needs no
-device.
+evaluation reports alone (the reference's ``pymic_eval_seg``) and
+``main_eval_cls`` (``python -m fpl_plus_torch.metrics.cls_metrics cfg``)
+the classification metrics (``pymic_eval_cls``); they need no device.
 """
 from __future__ import annotations
 
@@ -30,12 +39,16 @@ import logging
 import os
 import sys
 
+from fpl_plus_torch.agents.agent_cls import ClassificationAgent
 from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+from fpl_plus_torch.agents.nll import NLLMethodDict
+from fpl_plus_torch.agents.nll_clslsr import run_get_confidence_map
 from fpl_plus_torch.agents.ssl import SSLMethodDict
 from fpl_plus_torch.agents.wsl import WSLMethodDict
 from fpl_plus_torch.config.parser import (logging_config, parse_config,
                                           synchronize_config)
 from fpl_plus_torch.device import resolve_device
+from fpl_plus_torch.metrics.cls_metrics import main_eval_cls  # noqa: F401
 from fpl_plus_torch.metrics.evaluate import eva_main
 from fpl_plus_torch.utils.precision import apply_matmul_precision
 
@@ -66,10 +79,6 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
             args.cfg))
     dev = resolve_device(device if device is not None else args.device)
     config = synchronize_config(parse_config(args.cfg))
-    task = config['dataset'].get('task_type', 'seg')
-    if task != 'seg':
-        raise NotImplementedError('task_type {0} is not yet ported'.format(
-            task))
     agent_class = agent_of(config)
     apply_matmul_precision(config, args.stage)
     log_dir = config['training']['ckpt_save_dir']
@@ -78,6 +87,8 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
     logging_config(config)
 
     agent_class(config, args.stage, dev).run()
+    if config['dataset'].get('task_type', 'seg') != 'seg':
+        return 0
     if args.stage == 'train':
         # the auto test stage (reference net_run_dsbn/net_run.py:37-40)
         agent_class(config, 'test', dev).run()
@@ -86,9 +97,17 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
     return 0
 
 
+def _task_agent(config):
+    task = config['dataset'].get('task_type', 'seg')
+    if task == 'seg':
+        return SegmentationAgent
+    if task in ('cls', 'cls_nexcl'):
+        return ClassificationAgent
+    raise ValueError('Undefined task type {0}'.format(task))
+
+
 def main(argv=None, device=None):
-    return _run(argv, 'python -m fpl_plus_torch.cli',
-                lambda config: SegmentationAgent, device)
+    return _run(argv, 'python -m fpl_plus_torch.cli', _task_agent, device)
 
 
 def _method_agent(section: str, key: str, registry: dict):
@@ -113,7 +132,41 @@ def main_wsl(argv=None, device=None):
         'weakly_supervised_learning', 'wsl_method', WSLMethodDict), device)
 
 
-PARADIGM_MAINS = {'ssl': main_ssl, 'wsl': main_wsl}
+def main_nll(argv=None, device=None):
+    """pymic_nll (reference net_run_nll/nll_main.py)."""
+    return _run(argv, 'python -m fpl_plus_torch.cli nll', _method_agent(
+        'noisy_label_learning', 'nll_method', NLLMethodDict), device)
+
+
+def main_nll_clslsr(argv=None, device=None):
+    """The CLSLSR stage (reference net_run_nll/nll_clslsr.py:149-205):
+    ``[stage] cfg [--device]``; a leading stage token is accepted and
+    ignored, as the JAX package's CLI does."""
+    argv = argv if argv is not None else sys.argv[1:]
+    parser = argparse.ArgumentParser(
+        prog='python -m fpl_plus_torch.cli nll_clslsr')
+    parser.add_argument('args', nargs='+', metavar='[stage] cfg')
+    parser.add_argument('--device', default=None,
+                        help='cuda[:i] (default cuda:0) or cpu')
+    args = parser.parse_args(argv)
+    if len(args.args) > 2:
+        parser.error('expected [stage] cfg, got {0}'.format(args.args))
+    cfg = args.args[-1]
+    if not os.path.isfile(cfg):
+        raise ValueError('The config file does not exist: {0}'.format(cfg))
+    dev = resolve_device(device if device is not None else args.device)
+    config = synchronize_config(parse_config(cfg))
+    apply_matmul_precision(config, 'test')
+    log_dir = config['training']['ckpt_save_dir']
+    os.makedirs(log_dir, exist_ok=True)
+    _setup_logging('{0}/log_clslsr.txt'.format(log_dir))
+    logging_config(config)
+    run_get_confidence_map(config, dev)
+    return 0
+
+
+PARADIGM_MAINS = {'ssl': main_ssl, 'wsl': main_wsl, 'nll': main_nll,
+                  'nll_clslsr': main_nll_clslsr}
 
 
 def main_eval_seg(argv=None):
@@ -131,7 +184,8 @@ def main_eval_seg(argv=None):
 
 
 def shell(argv) -> int:
-    """``[ssl | wsl] stage cfg [--device]`` from the shell."""
+    """``[ssl | wsl | nll | nll_clslsr] stage cfg [--device]`` from the
+    shell."""
     if argv and argv[0] in PARADIGM_MAINS:
         return PARADIGM_MAINS[argv[0]](argv[1:])
     return main(argv)

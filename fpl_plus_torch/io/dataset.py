@@ -207,3 +207,28 @@ class NiftyDataset:
         for t in self._suffix:
             sample = t(sample)
         return sample
+
+
+class ClassificationDataset(NiftyDataset):
+    """Images with a scalar class label (reference
+    nifty_dataset.py:327-379, the JAX package's ``ClassificationDataset``):
+    the first ``modal_num`` columns name the images (2D images or volumes),
+    ``label`` holds the class index (int64)."""
+
+    def __init__(self, root_dir, csv_file, modal_num=1, class_num=2,
+                 with_label=False, transform=None):
+        super().__init__(root_dir, csv_file, modal_num, with_label,
+                         transform)
+        self.class_num = class_num
+
+    def _raw_sample(self, idx):
+        names_list, image_list = [], []
+        for i in range(self.modal_num):
+            image_name = self.rows[idx][i]
+            names_list.append(image_name)
+            image_list.append(self._load_image(image_name)['data_array'])
+        image = np.asarray(np.concatenate(image_list, axis=0), np.float32)
+        sample = {'image': image, 'names': names_list[0]}
+        if self.with_label:
+            sample['label'] = np.int64(self.rows[idx][self.label_idx])
+        return sample

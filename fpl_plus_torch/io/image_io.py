@@ -5,8 +5,9 @@ API parity with the reference loader
 ``load_image_as_nd_array`` returns ``{'data_array': [C,D,H,W], 'origin',
 'spacing', 'direction'}``; ``save_nd_array_as_image`` writes a 3D array with
 metadata copied from a reference image. ``spacing`` is reported as (z, y, x)
-exactly like the reference's loader. Trimmed to the volume formats
-(NIfTI, MetaImage) the test stage reads and writes.
+exactly like the reference's loader. Volumes (NIfTI, MetaImage) and the 2D
+images of the classification task (PNG, JPEG, TIFF, through PIL, which is
+imported inside the two functions that use it).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from fpl_plus_torch.io.nifti import (ImageGeometry, NiftiImage, read_image,
                                      write_image)
 
 _VOLUME_EXT = ('.nii.gz', '.nii', '.mha')
+_RGB_EXT = ('.jpg', '.jpeg', '.tif', '.png')
 
 
 def load_nifty_volume_as_4d_array(filename: str) -> dict:
@@ -37,9 +39,26 @@ def load_nifty_volume_as_4d_array(filename: str) -> dict:
     }
 
 
+def load_rgb_image_as_3d_array(filename: str) -> dict:
+    """A 2D image as ``[C, H, W]`` (grey: C = 1; RGB(A): its 3 colours)."""
+    from PIL import Image
+    image = np.asarray(Image.open(filename))
+    if image.ndim == 2:
+        image = image[None]
+    elif image.shape[2] in (3, 4):
+        image = np.transpose(image[:, :, :3], (2, 0, 1))
+    else:
+        raise ValueError('{0}: {1} colour channels'.format(
+            filename, image.shape[2]))
+    return {'data_array': image, 'origin': (0, 0), 'spacing': (1.0, 1.0),
+            'direction': 0}
+
+
 def load_image_as_nd_array(image_name: str) -> dict:
     if image_name.endswith(_VOLUME_EXT):
         return load_nifty_volume_as_4d_array(image_name)
+    if image_name.endswith(_RGB_EXT):
+        return load_rgb_image_as_3d_array(image_name)
     raise ValueError('unsupported image format: {0}'.format(image_name))
 
 
@@ -51,10 +70,28 @@ def save_array_as_nifty_volume(data: np.ndarray, image_name: str,
     write_image(NiftiImage(data=np.asarray(data), geometry=geom), image_name)
 
 
+def save_array_as_rgb_image(data: np.ndarray, image_name: str) -> None:
+    """A 2D array, or a 3-colour ``[3, H, W]`` / ``[H, W, 3]`` one, as an
+    image file."""
+    from PIL import Image
+    if data.ndim == 3:
+        if 3 not in (data.shape[0], data.shape[2]):
+            raise ValueError('an image has 3 colours, got {0}'.format(
+                data.shape))
+        if data.shape[0] == 3:
+            data = np.transpose(data, (1, 2, 0))
+    Image.fromarray(data).save(image_name)
+
+
 def save_nd_array_as_image(data: np.ndarray, image_name: str,
                            reference_name: str = None) -> None:
-    if not image_name.endswith(_VOLUME_EXT) or data.ndim != 3:
-        raise ValueError('the test stage writes 3D volumes (.nii.gz, .nii, '
-                         '.mha), got {0} for {1}'.format(data.shape,
-                                                         image_name))
-    save_array_as_nifty_volume(data, image_name, reference_name)
+    """A 3D volume (.nii.gz, .nii, .mha) with the reference's metadata, or
+    a 2D array as an image (.png, .jpg, .jpeg, .tif)."""
+    if image_name.endswith(_VOLUME_EXT) and data.ndim == 3:
+        save_array_as_nifty_volume(data, image_name, reference_name)
+    elif image_name.endswith(_RGB_EXT) and data.ndim == 2:
+        save_array_as_rgb_image(data, image_name)
+    else:
+        raise ValueError('unsupported array {0} for {1}: 3D volumes go to '
+                         '.nii.gz, .nii, .mha and 2D arrays to .png, .jpg, '
+                         '.jpeg, .tif'.format(data.shape, image_name))

@@ -29,6 +29,13 @@ its peers are the scopes ``{Class}_{i}`` (the flax class name of the
 registry network and the peer's index), each converted as above and put
 under ``nets.{i}``.
 
+``state_dict_from_cls`` bridges the classification nets (ResNet18, VGG16,
+MobileNetV2) to their torchvision names, the inverse of the JAX package's
+torchvision converter (``utils/torch_convert.py:127-252`` there): kernel
+transposes, one-bank BatchNorm rows ``[1, C]`` -> ``[C]``, and VGG16's
+first dense layer, whose inputs the JAX net flattens channels-last
+(h, w, c), permuted to torchvision's (c, h, w).
+
 ``state_dict_from_flax`` serves every other network (the UNet2D and UNet3D
 families, ``AEs``), whose submodules the port names after the flax scopes:
 an explicit scope name is kept, an automatic one shortened (``_SCOPES``,
@@ -195,3 +202,83 @@ def state_dict_from_multinet(params: Dict, batch_stats: Dict,
                 else state_dict_from_flax(params[scope], stats))
         sd.update({'nets.{0}.{1}'.format(i, k): v for k, v in peer.items()})
     return sd
+
+
+_VGG16_CONVS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+
+
+def state_dict_from_cls(params: Dict, batch_stats: Dict,
+                        net_type: str) -> Dict[str, torch.Tensor]:
+    """JAX ``(params, batch_stats)`` of a ``cls_nets`` network -> the
+    torchvision-named state dict of the port's net of ``net_type``."""
+    sd: Dict[str, np.ndarray] = {}
+    stats = batch_stats or {}
+
+    def conv(name, p, bias=False):
+        sd[name + '.weight'] = _conv_kernel(p['kernel'])
+        if bias:
+            sd[name + '.bias'] = np.asarray(p['bias'])
+
+    def dense(name, p, kernel=None):
+        w = np.asarray(p['kernel']) if kernel is None else kernel
+        sd[name + '.weight'] = w.T
+        sd[name + '.bias'] = np.asarray(p['bias'])
+
+    def bn(name, p, s):
+        sd[name + '.weight'] = np.reshape(p['scale'], -1)
+        sd[name + '.bias'] = np.reshape(p['bias'], -1)
+        sd[name + '.running_mean'] = np.reshape(s['mean'], -1)
+        sd[name + '.running_var'] = np.reshape(s['var'], -1)
+        sd[name + '.num_batches_tracked'] = np.asarray(0, np.int64)
+
+    if net_type == 'resnet18':
+        conv('conv1', params['conv1'])
+        bn('bn1', params['bn1'], stats['bn1'])
+        for layer in range(1, 5):
+            for b in range(2):
+                scope = 'layer{0}_{1}'.format(layer, b)
+                p, st = params[scope], stats[scope]
+                pref = 'layer{0}.{1}'.format(layer, b)
+                for j in (1, 2):
+                    conv('{0}.conv{1}'.format(pref, j), p['conv{0}'.format(j)])
+                    bn('{0}.bn{1}'.format(pref, j), p['bn{0}'.format(j)],
+                       st['bn{0}'.format(j)])
+                if 'downsample' in p:
+                    conv(pref + '.downsample.0', p['downsample'])
+                    bn(pref + '.downsample.1', p['bn_down'], st['bn_down'])
+        dense('fc', params['fc'])
+    elif net_type == 'vgg16':
+        for i, idx in enumerate(_VGG16_CONVS):
+            conv('features.{0}'.format(idx), params['conv{0}'.format(i)],
+                 bias=True)
+        k = np.asarray(params['fc1']['kernel'])          # [(h, w, c), out]
+        k = np.transpose(k.reshape(7, 7, 512, -1), (2, 0, 1, 3)).reshape(
+            k.shape)                                     # [(c, h, w), out]
+        dense('classifier.0', params['fc1'], kernel=k)
+        dense('classifier.3', params['fc2'])
+        dense('classifier.6', params['head'])
+    elif net_type == 'mobilenetv2':
+        conv('features.0.0', params['stem'])
+        bn('features.0.1', params['bn_stem'], stats['bn_stem'])
+        for i in range(1, 18):
+            scope = 'block{0}'.format(i - 1)
+            p, st = params[scope], stats[scope]
+            pref = 'features.{0}.conv'.format(i)
+            j = 0
+            if 'expand' in p:
+                conv(pref + '.0.0', p['expand'])
+                bn(pref + '.0.1', p['bn0'], st['bn0'])
+                j = 1
+            conv('{0}.{1}.0'.format(pref, j), p['dw'])
+            bn('{0}.{1}.1'.format(pref, j), p['bn1'], st['bn1'])
+            conv('{0}.{1}'.format(pref, j + 1), p['project'])
+            bn('{0}.{1}'.format(pref, j + 2), p['bn2'], st['bn2'])
+        conv('features.18.0', params['head_conv'])
+        bn('features.18.1', params['bn_head'], stats['bn_head'])
+        dense('classifier.1', params['classifier'])
+    else:
+        raise ValueError('Undefined network {0}'.format(net_type))
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64
+                                         if k.endswith('num_batches_tracked')
+                                         else np.float32))
+            for k, v in sd.items()}
