@@ -138,9 +138,31 @@ then runs, each phase failing the script on any error:
     state dict (eval forward, one SGD step; TF32 off); 3 train steps of
     each at batch 8 x 3 x 224^2 (ms, peak memory); ``cli train`` + ``cli
     test`` of ResNet18 with ``task_type = cls`` on RGB PNGs and
-    ``main_eval_cls`` on its probabilities: no kernel launch.
+    ``main_eval_cls`` on its probabilities: no kernel launch;
+27. the train loader's worker pool (``io/loader.py``): phase 13's
+    flagship stream (batch 4, domain 2) at ``num_workder = 8`` (clamped to
+    ``cpu_count - 1``) against the synchronous path, every array of 8
+    batches bit-equal, batches/s of both; then phase 13's generator ``cli
+    train`` (4 iterations, validation every 2, the auto test stage) with
+    the pool: step-call ms, host wait per iteration and validation ms per
+    volume beside phase 13's synchronous figures, launches equal to 18 x
+    the eval forwards, no torch or CUDA library mapped in a worker and no
+    worker alive after the run (phases 13 and 15 run with ``num_workder =
+    0``; the other train CLIs take the default pool);
+28. host tools: ``python -m fpl_plus_torch.utils.model_operate average`` of
+    phase 13's ``train_2.pt`` and ``train_4.pt`` (parameters equal to their
+    float64 mean cast back, statistics the first's), a ``ckpt_mode = 2``
+    test stage of it through the CLI on the phase-4 volumes (labels in
+    {0, 1}, 18 launches per forward), a ``rename`` round trip, and ``python
+    -m fpl_plus_torch.utils.preprocess`` on a phase-4 volume against the
+    same chain applied in memory;
+29. the converter: ``python -m fpl_plus_torch.cli convert`` of the
+    committed JAX checkpoint ``tests/data/jax_ckpt/jax_3.ckpt`` (no JAX
+    imported), then the port's forward of its window on the card, domains
+    0 and 1, against the JAX logits stored beside it, by phase 3's
+    tolerance, 18 launches each.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25, 26) sets the
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-29) sets the
 launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -972,6 +994,7 @@ modal_num = 1
 2_valid_csv = {root}/d1_valid.csv
 test_csv = {root}/target_test.csv
 train_batch_size = {batch}
+num_workder = {workers}
 train_transform = {train_chain}
 valid_transform = [NormalizeWithMeanStd, Pad, LabelToProbability]
 test_transform = [NormalizeWithMeanStd, Pad]
@@ -1041,14 +1064,17 @@ test_evaluation_image_pair = {root}/test_pairs.csv
 
 def train_cfg(root, tag, d1_train='d1_train.csv', fpl_uda=False, start=0,
               stop=2, precision='float32', ckpt='train', batch=TRAIN_BATCH,
-              chain=TRAIN_CHAIN, dual=True, extra='', evaluation=''):
+              chain=TRAIN_CHAIN, dual=True, extra='', evaluation='',
+              workers=0):
+    """A train cfg; ``workers`` is its ``num_workder``, 0 (the items made
+    in the main process) unless a phase asks for the pool."""
     cfg = os.path.join(root, 'train_{0}.cfg'.format(tag))
     with open(cfg, 'w') as f:
         f.write(TRAIN_CFG.format(
             root=root, d1_train=d1_train, fpl_uda=fpl_uda, iter_start=start,
             iter_max=stop, precision=precision, tag=tag, ckpt=ckpt,
             batch=batch, train_chain=chain, dual=dual, extra=extra,
-            evaluation=evaluation))
+            evaluation=evaluation, workers=workers))
     return cfg
 
 
@@ -3174,6 +3200,313 @@ def cls_cli_phase(root):
             'wall_s': wall}
 
 
+# phases 27-29: the loader's worker pool, the host tools, the converter
+POOL_BATCHES = 8                 # phase 27's stream comparison
+POOL_WORKERS = 8                 # num_workder of phase 27 (JAX's default)
+PREPROCESS_PAD = [44, 168, 280]  # phase 28's preprocess chain
+FIXTURE = os.path.join(REPO, 'tests', 'data', 'jax_ckpt')
+
+
+def loader_workers():
+    """The pids of the loader's worker processes alive now: the children of
+    the multiprocessing forkserver, where the pool forks them."""
+    from multiprocessing import forkserver
+    server = forkserver._forkserver._forkserver_pid
+    pids = []
+    for entry in os.listdir('/proc') if server else ():
+        try:
+            with open('/proc/{0}/stat'.format(entry)) as f:
+                ppid = int(f.read().rsplit(')', 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == server:
+            pids.append(int(entry))
+    return pids
+
+
+@contextlib.contextmanager
+def watching_pools(sink):
+    """At each pool's shutdown, record its worker count, how many were
+    alive, and the torch or CUDA libraries mapped in their processes."""
+    from fpl_plus_torch.io.loader import DataLoader
+    orig = DataLoader.shutdown
+
+    def shutdown(self):
+        if self._pool is not None:
+            libs, alive = set(), 0
+            for proc in self._pool:
+                try:
+                    with open('/proc/{0}/maps'.format(proc.pid)) as f:
+                        libs.update(line.split()[-1] for line in f if any(
+                            n in line for n in ('libtorch', 'libc10',
+                                                'libcuda')))
+                    alive += 1
+                except OSError:
+                    pass
+            sink.append({'workers': len(self._pool), 'alive': alive,
+                         'torch_libs': sorted(libs)})
+        orig(self)
+
+    DataLoader.shutdown = shutdown
+    try:
+        yield sink
+    finally:
+        DataLoader.shutdown = orig
+
+
+def same_batch(a, b):
+    if sorted(a) != sorted(b):
+        return False
+    for key, value in a.items():
+        if isinstance(value, np.ndarray):
+            if value.dtype != b[key].dtype or not np.array_equal(value,
+                                                                 b[key]):
+                return False
+        elif value != b[key]:
+            return False
+    return True
+
+
+def pool_phase(root, train, fwd_per_volume):
+    """(27) The train loader's worker pool at full width: phase 13's
+    flagship stream, synchronous against pooled, bit for bit and timed;
+    then phase 13's generator ``cli train`` with ``num_workder = 8``."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.config.parser import parse_config, synchronize_config
+    from fpl_plus_torch.engine.train import JointTrainStep
+    from fpl_plus_torch.io.loader import repeat_loader
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    expected = min(POOL_WORKERS, max((os.cpu_count() or 1) - 1, 0))
+    streams = {}
+    for workers in (0, POOL_WORKERS):
+        cfg = train_cfg(root, 'pool_stream_{0}'.format(workers),
+                        workers=workers)
+        agent = SegmentationAgent(synchronize_config(parse_config(cfg)),
+                                  'train', torch.device('cpu'))
+        agent.create_dataset()
+        loader = agent.train_loaders[1]     # domain 2: the phase-4 volumes
+        stream = repeat_loader(loader)
+        batches, stamps = [], [time.perf_counter()]
+        try:
+            for _ in range(POOL_BATCHES):
+                batches.append(next(stream))
+                stamps.append(time.perf_counter())
+        finally:
+            agent.shutdown()
+        streams[workers] = {'workers': loader.num_workers,
+                            'batches': batches,
+                            's': stamps[-1] - stamps[0],
+                            'steady_s': stamps[-1] - stamps[1]}
+    check(streams[POOL_WORKERS]['workers'] == expected,
+          'pool of {0} workers, expected {1}'.format(
+              streams[POOL_WORKERS]['workers'], expected))
+    equal = [same_batch(a, b) for a, b in zip(
+        streams[0]['batches'], streams[POOL_WORKERS]['batches'])]
+    check(all(equal), 'pooled batches differ from the synchronous ones: '
+          '{0}'.format(equal))
+    rates = {w: {'batches_per_s': POOL_BATCHES / r['s'],
+                 'steady_batches_per_s': (POOL_BATCHES - 1) / r['steady_s']}
+             for w, r in streams.items()}
+    print('pool stream: {0} batches of {1} crops, pooled ({2} workers) equal '
+          'to synchronous bit for bit; synchronous {3:.3f} batches/s '
+          '({4:.3f} after the first), pooled {5:.3f} ({6:.3f})'.format(
+              POOL_BATCHES, TRAIN_BATCH, expected,
+              rates[0]['batches_per_s'], rates[0]['steady_batches_per_s'],
+              rates[POOL_WORKERS]['batches_per_s'],
+              rates[POOL_WORKERS]['steady_batches_per_s']))
+
+    valid_volumes = 2 + N_VOLUMES
+    cfg = train_cfg(root, 'pool', start=0, stop=4, ckpt='pool',
+                    workers=POOL_WORKERS)
+    step_ms, valid_ms, pools = [], [], []
+    with timed_method(JointTrainStep, '__call__', step_ms), \
+            timed_method(SegmentationAgent, 'validation', valid_ms), \
+            counting_forwards() as forwards, watching_pools(pools):
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['train', cfg])
+        launches = dsbn_prelu.launches
+    check(rc == 0, 'pooled train stage rc {0}'.format(rc))
+    n_eval = valid_volumes * 4 // 2 + N_VOLUMES
+    check(forwards[0] == n_eval * fwd_per_volume,
+          '{0} eval forwards in the pooled run, expected {1}'.format(
+              forwards[0], n_eval * fwd_per_volume))
+    check(launches == 18 * forwards[0], '{0} kernel launches for {1} eval '
+          'forwards'.format(launches, forwards[0]))
+    check(len(step_ms) == 4, '{0} train steps'.format(len(step_ms)))
+    check([p['workers'] for p in pools] == [expected, expected]
+          and all(p['alive'] == expected for p in pools),
+          'pools at shutdown {0}, expected two of {1} live workers'.format(
+              pools, expected))
+    check(not any(p['torch_libs'] for p in pools),
+          'torch or CUDA libraries in the workers: {0}'.format(pools))
+    left = loader_workers()
+    check(not left, 'loader workers alive after the run: {0}'.format(left))
+    with open(os.path.join(root, 'model', 'pool', 'scalars.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    wait = [r['value'] for r in recs if r['tag'] == 'host_wait']
+    losses = [r[k] for r in recs if r['tag'] == 'loss'
+              for k in ('train', 'valid')]
+    check(len(losses) == 4 and all(np.isfinite(losses)),
+          'losses {0}'.format(losses))
+    sync = train['gen']
+    run = {'launches': launches, 'forwards': forwards[0], 'step_ms': step_ms,
+           'host_wait_s': wait, 'valid_ms': [t / valid_volumes
+                                             for t in valid_ms],
+           'workers': expected, 'stream': rates}
+    print('pool train (num_workder {0}: {1} workers per domain): steps {2} ms '
+          '(synchronous phase 13: {3}), host wait per iteration {4} s '
+          '({5}), validation {6} ms per volume ({7}); {8} eval forwards, {9} '
+          'kernel launches; no worker alive after the run, none mapped torch'
+          .format(POOL_WORKERS, expected,
+                  ['{0:.1f}'.format(t) for t in step_ms],
+                  ['{0:.1f}'.format(t) for t in sync['step_ms']],
+                  ['{0:.4f}'.format(w) for w in wait],
+                  ['{0:.4f}'.format(w) for w in sync['host_wait_s']],
+                  ['{0:.1f}'.format(t) for t in run['valid_ms']],
+                  ['{0:.1f}'.format(t) for t in sync['valid_ms']],
+                  forwards[0], launches))
+    return run
+
+
+def host_tools_phase(root, names, fwd_per_volume):
+    """(28) ``model_operate average`` of phase 13's checkpoints served by a
+    ``ckpt_mode = 2`` test stage, a ``rename`` round trip, and the
+    ``preprocess`` CLI against its chain applied in memory."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.ckpt import STATISTICS, load_checkpoint
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.io.nifti import read_image
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.utils import model_operate, preprocess
+    ckpt_dir = os.path.join(root, 'model', 'train')
+    train2, train4 = (os.path.join(ckpt_dir, 'train_{0}.pt'.format(i))
+                      for i in (2, 4))
+    avg = os.path.join(root, 'model', 'avg.pt')
+    t0 = time.perf_counter()
+    check(model_operate.main(['average', train2, train4, '--output',
+                              avg]) == 0, 'model_operate average')
+    average_s = time.perf_counter() - t0
+    a, b, m = (load_checkpoint(p)['model_state_dict']
+               for p in (train2, train4, avg))
+    averaged = 0
+    for key, value in a.items():
+        if key.endswith(STATISTICS):
+            want = value
+        else:
+            want = ((value.double() + b[key].double()) / 2).to(value.dtype)
+            averaged += 1
+        check(m[key].dtype == want.dtype and torch.equal(m[key], want),
+              'averaged entry {0}'.format(key))
+    check(averaged > 0 and any(not torch.equal(a[k], b[k]) for k in a),
+          'nothing to average')
+
+    cfg = write_cfg(root, 'avg', mode=2, extra='ckpt_name = ' + avg)
+    with counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['test', cfg])
+        launches = dsbn_prelu.launches
+    check(rc == 0, 'averaged test stage rc {0}'.format(rc))
+    check(forwards[0] == N_VOLUMES * fwd_per_volume and
+          launches == 18 * forwards[0], 'averaged test stage: {0} launches '
+          'for {1} forwards'.format(launches, forwards[0]))
+    for name in names:
+        lab = load_image_as_nd_array(os.path.join(
+            root, 'out_avg', 'gen_target_test', os.path.basename(name)))[
+            'data_array']
+        check(lab.shape == (1,) + VOLUME and set(np.unique(lab)) <= {0, 1},
+              'averaged labels {0} {1}'.format(lab.shape, np.unique(lab)))
+
+    key = next(iter(a))
+    there, back = (os.path.join(root, 'model', n)
+                   for n in ('renamed.pt', 'back.pt'))
+    check(model_operate.main(['rename', avg, there, '--from', key, '--to',
+                              'renamed.' + key]) == 0, 'rename')
+    check(next(iter(load_checkpoint(there)['model_state_dict']))
+          == 'renamed.' + key, 'the renamed entry')
+    check(model_operate.main(['rename', there, back, '--from',
+                              'renamed.' + key, '--to', key]) == 0,
+          'rename back')
+    restored = load_checkpoint(back)['model_state_dict']
+    check(list(restored) == list(m) and all(
+        torch.equal(restored[k], m[k]) for k in m), 'rename round trip')
+
+    chain = os.path.join(root, 'preprocess.cfg')
+    with open(chain, 'w') as f:
+        f.write('[dataset]\ntransform = [NormalizeWithMeanStd, Pad]\n'
+                'NormalizeWithMeanStd_channels = [0]\n'
+                'Pad_output_size = {0}\n'.format(PREPROCESS_PAD))
+    src = os.path.join(root, names[0])
+    out = os.path.join(root, 'preprocessed.nii.gz')
+    t0 = time.perf_counter()
+    check(preprocess.main([chain, src, out]) == 0, 'preprocess CLI')
+    preprocess_s = time.perf_counter() - t0
+    loaded = load_image_as_nd_array(src)
+    sample = {'image': np.asarray(loaded['data_array'], np.float32),
+              'origin': loaded['origin'], 'spacing': loaded['spacing'],
+              'direction': loaded['direction']}
+    for t in preprocess.get_transform_list(chain):
+        sample = t(sample)
+    written = read_image(out)
+    check(written.data.shape == tuple(PREPROCESS_PAD)
+          and np.array_equal(written.data, sample['image'][0]),
+          'preprocess output {0} differs from the chain in memory'.format(
+              written.data.shape))
+    print('host tools: model_operate average of train_2 and train_4 in '
+          '{0:.2f} s ({1} parameters averaged in float64, statistics from '
+          'the first), its ckpt_mode 2 test stage {2} forwards / {3} kernel '
+          'launches; rename round trip equal; preprocess CLI {4:.2f} s, '
+          'equal to the chain in memory'.format(
+              average_s, averaged, forwards[0], launches, preprocess_s))
+    return {'launches': launches, 'forwards': forwards[0],
+            'average_s': average_s, 'preprocess_s': preprocess_s}
+
+
+def converter_phase(root, dev):
+    """(29) ``cli convert`` of the committed JAX checkpoint, then the
+    port's forward of its window on the card against JAX's logits."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.config.parser import parse_config
+    from fpl_plus_torch.engine.ckpt import load_checkpoint
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    out = os.path.join(root, 'model', 'converted', 'converted_3.pt')
+    check(cli.shell(['convert', os.path.join(FIXTURE, 'jax_3.ckpt'),
+                     os.path.join(FIXTURE, 'net.cfg'), out]) == 0,
+          'cli convert')
+    check(not any(m.split('.')[0] in ('jax', 'flax', 'msgpack')
+                  for m in sys.modules), 'JAX on the converter path')
+    net = create_network(parse_config(os.path.join(
+        FIXTURE, 'net.cfg'))['network']).eval()
+    net.load_state_dict(load_checkpoint(out)['model_state_dict'],
+                        strict=True)
+    net = net.to(dev)
+    window = np.load(os.path.join(FIXTURE, 'window.npz'))
+    x = torch.from_numpy(window['x']).to(dev)
+    errs = {}
+    with tf32_off(), torch.inference_mode():
+        for domain in (0, 1):
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            got = net(x, domain).cpu().numpy()
+            check(dsbn_prelu.launches == 18, 'converted forward launched '
+                  'the kernel {0} times'.format(dsbn_prelu.launches))
+            want = window['logits_d{0}'.format(domain)]
+            check(got.shape == want.shape and bool(np.isfinite(got).all()),
+                  'converted logits {0}'.format(got.shape))
+            errs[domain] = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            check(errs[domain] <= FWD_TOL * max(1.0, scale),
+                  'converted forward disagrees with JAX on domain {0}: '
+                  '{1}'.format(domain, errs[domain]))
+    print('converter: JAX checkpoint {0} -> {1}; the card forward of its '
+          'window, domains 0 / 1, max abs err against JAX\'s logits {2:.3g} '
+          '/ {3:.3g} (tolerance {4} x max(1, |logit|)), 18 kernel launches '
+          'each'.format(os.path.relpath(os.path.join(FIXTURE, 'jax_3.ckpt'),
+                                        REPO), os.path.basename(out),
+                        errs[0], errs[1], FWD_TOL))
+    return {'launches': 36, 'max_abs_err': max(errs.values())}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -3229,6 +3562,9 @@ def main():
         cls_steps_check = cls_check(dev)
         cls_steps = cls_timed(dev)
         cls_cli = cls_cli_phase(ws)
+        pool = pool_phase(ws, train, fwd_per_volume)
+        tools = host_tools_phase(ws, names, fwd_per_volume)
+        converter = converter_phase(ws, dev)
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -3321,7 +3657,8 @@ def main():
                      + sum(r['launches'] for r in paradigm_cli.values())
                      + sum(r['launches'] for r in nll_cli.values()
                            if isinstance(r, dict))
-                     + cls_cli['launches']),
+                     + cls_cli['launches'] + pool['launches']
+                     + tools['launches'] + converter['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -3380,6 +3717,18 @@ def main():
         'cls_peak_gib': {m: r['peak_gib'] for m, r in cls_steps.items()},
         'cls_check_grad_worst': max(r['grad_worst']
                                     for r in cls_steps_check.values()),
+        'pool_workers': pool['workers'],
+        'pool_stream': {str(w): r for w, r in pool['stream'].items()},
+        'pool_launches': pool['launches'],
+        'pool_step_ms': pool['step_ms'],
+        'pool_host_wait_s': pool['host_wait_s'],
+        'pool_valid_ms_per_volume': pool['valid_ms'],
+        'sync_step_ms': train['gen']['step_ms'],
+        'sync_host_wait_s': train['gen']['host_wait_s'],
+        'sync_valid_ms_per_volume': train['gen']['valid_ms'],
+        'average_test_launches': tools['launches'],
+        'converter_launches': converter['launches'],
+        'converter_max_abs_err': converter['max_abs_err'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -11,8 +11,9 @@ kernel (``ops/dsbn_prelu.py``).
 
 Layer map (mirrors reference layers L0-L10, see SURVEY.md):
   config/      INI-compatible experiment configuration (L9)
-  io/          NIfTI codec + CSV-manifest datasets (caches, FPL+ weights),
-               loader, prefetch (L1)
+  io/          NIfTI codec + CSV-manifest, .npy and HDF5 datasets (caches,
+               FPL+ weights), loader with its worker-process pool,
+               prefetch (L1)
   transforms/  sample-dict transform pipeline with recorded inverses (L2)
   models/      torch networks: UNet2D5 with DSBN, the UNet2D and UNet3D
                families, AEs, the discriminator (L3)
@@ -29,8 +30,9 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
                first use)
   ops/         hand-written Hopper kernels with their plain versions
   fpl/         FPL+ weight and data tools (``python -m fpl_plus_torch.fpl``)
-  utils/       weight bridge, label ops, post-processing, precision
-               policy, scalar curves
+  utils/       weight bridge and JAX-checkpoint converter (with its flax
+               msgpack reader), checkpoint surgery, offline preprocessing,
+               image ops, post-processing, precision policy, scalar curves
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
 
@@ -42,8 +44,9 @@ window + flip TTA, multi-head outputs, batched serving, checkpoint
 ensembles, inverse transforms on the device or the host, post-processing)
 and the FPL MC-dropout uncertainty pass — the evaluation reports, the FPL
 weight tools, and every network, segmentation loss and transform of the
-JAX package's registries. The other agents, the loader's worker pool and
-scale-out are queued in ROADMAP.md.
+JAX package's registries; the SSL, WSL, NLL and classification agents; the
+loader's worker pool, the converter of JAX checkpoints and the host tools.
+Scale-out is queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -63,7 +63,8 @@ class ClassificationAgent(NetRunAgent):
     def task_type(self) -> str:
         return 'classification'
 
-    def stage_dataset(self, stage: str) -> ClassificationDataset:
+    def stage_dataset(self, stage: str,
+                      workers: int = 0) -> ClassificationDataset:
         data_cfg = self.config['dataset']
         real_stage = stage.split('_')[-1]
         csv_file = data_cfg.get(stage + '_csv', None) or data_cfg.get(

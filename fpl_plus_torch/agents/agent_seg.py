@@ -21,8 +21,9 @@ Training (``train_valid``, reference :689-831, JAX :417-803):
 * Adam or another ``torch.optim`` optimizer, MultiStepLR over iterations
   (two updates per iteration for the alternating and dual-consistency
   steps) or the plateau controller, ``[training] precision`` f32 or bf16;
-* the per-domain train streams are produced in a thread
-  (``prefetch_iter``) while the card steps; the time the loop waits on
+* the per-domain train streams are produced by the loaders' worker
+  processes and collated, pinned and paired in a thread (``prefetch_iter``)
+  while the card steps; the time the loop waits on
   them is logged and written as the ``host_wait`` scalar;
 * every ``iter_valid`` iterations: per-domain whole-volume validation
   through the Inferer (``val_t1`` / ``val_t2`` select the domain that
@@ -388,8 +389,11 @@ class SegmentationAgent(NetRunAgent):
             return
         if 'dis_state_dict' in loaded:
             self.dis.load_state_dict(loaded['dis_state_dict'])
-            self.dis_optimizer.load_state_dict(
-                loaded['dis_optimizer_state_dict'])
+            # a checkpoint converted from the JAX package has no optimizer
+            # state: the discriminator's Adam starts fresh
+            if 'dis_optimizer_state_dict' in loaded:
+                self.dis_optimizer.load_state_dict(
+                    loaded['dis_optimizer_state_dict'])
             logging.info('restored the discriminator from %s', path)
         else:
             logging.info('checkpoint has no discriminator state; fresh '

@@ -18,9 +18,9 @@ TriNet), and read ``[noisy_label_learning]``:
 * ``remb_ratio = 1 - (1 - select_ratio) x`` the sigmoid ramp between
   ``rampup_start`` (default 0) and ``rampup_end`` (default ``iter_max``);
 * DAST: a second train stream (``train_csv_noise``, batches of
-  ``train_batch_size_noise``, shuffled with seed ``random_seed + 200``;
-  the JAX package reads its worker count from the misspelled
-  ``num_workder`` key, and the port's loader has no workers). The step
+  ``train_batch_size_noise``, shuffled with seed ``random_seed + 200``,
+  produced by ``num_workder`` worker processes, default 8, not clamped to
+  the spare cores, as in the JAX package). The step
   reads its two selection scores on the host after the update, one
   device-to-host sync per step that the method needs; the rank queues,
   host Python, set the NEXT iteration's DBC and ST gates.
@@ -255,16 +255,24 @@ class NLLDAST(BiNetAgent, NLLAgent):
         if self.stage != 'train':
             return
         data_cfg = self.config['dataset']
+        # not clamped to the spare cores, as in the JAX package
+        # (agents/nll.py:232-239 there)
+        workers = int(data_cfg.get('num_workder',
+                                   data_cfg.get('num_worker', 8)))
         dataset = NiftyDataset(
             root_dir=data_cfg['root_dir'],
             csv_file=data_cfg['train_csv_noise'],
             modal_num=data_cfg.get('modal_num', 1), with_label=True,
             transform=self.build_transform('train'),
-            cache_bytes=int(data_cfg.get('cache_gb', 2.0) * (1 << 30)),
+            cache_bytes=self.cache_bytes('train', workers),
             transform_cache=data_cfg.get('transform_cache', True))
         self.train_loader_noise = DataLoader(
             dataset, batch_size=data_cfg['train_batch_size_noise'],
-            shuffle=True, seed=self.random_seed + 200)
+            shuffle=True, num_workers=workers, seed=self.random_seed + 200)
+
+    def loaders(self):
+        return super().loaders() + [
+            ld for ld in (self.train_loader_noise,) if ld is not None]
 
     def _train_batches(self):
         """Endless ``{'clean': batch, 'noise': batch}`` host batches."""

@@ -32,7 +32,8 @@ share on top of ``SegmentationAgent``, whose training loop they run:
 The SSL agents read ``[semi_supervised_learning]`` and a second train
 stream, the unlabelled manifest ``train_csv_unlab`` with
 ``train_transform_unlab`` in batches of ``train_batch_size_unlab``,
-shuffled with seed ``random_seed + 100``; each iteration concatenates the
+shuffled with seed ``random_seed + 100`` and produced by the train loaders'
+worker processes; each iteration concatenates the
 labelled and the unlabelled images into one student forward.
 """
 from __future__ import annotations
@@ -453,16 +454,21 @@ class SSLSegAgent(ParadigmAgent):
                 if name not in TransformDict:
                     raise ValueError('Undefined transform {0}'.format(name))
             transform = Compose([TransformDict[n](params) for n in names])
+        workers = self.train_workers()
         dataset = NiftyDataset(
             root_dir=data_cfg['root_dir'],
             csv_file=data_cfg['train_csv_unlab'],
             modal_num=data_cfg.get('modal_num', 1), with_label=False,
             transform=transform,
-            cache_bytes=int(data_cfg.get('cache_gb', 2.0) * (1 << 30)),
+            cache_bytes=self.cache_bytes('train', workers),
             transform_cache=data_cfg.get('transform_cache', True))
         self.train_loader_unlab = DataLoader(
             dataset, batch_size=data_cfg['train_batch_size_unlab'],
-            shuffle=True, seed=self.random_seed + 100)
+            shuffle=True, num_workers=workers, seed=self.random_seed + 100)
+
+    def loaders(self):
+        return super().loaders() + [
+            ld for ld in (self.train_loader_unlab,) if ld is not None]
 
     def _train_batches(self):
         """Endless ``{'lab': batch, 'unlab': {'image'}}`` host batches."""

@@ -13,7 +13,9 @@ first domain's batch. USTM's rotation ``k`` and DMPLS's mixing ``beta``
 are drawn per iteration from the process-wide numpy RNG, as in the JAX
 package: ``k`` in the train-batch producer right after the batch, ``beta``
 in ``training_hyper``; both under the loaders' lock (``io/loader.py``
-``host_random``), so neither lands inside an item's transforms.
+``host_random``), so neither lands inside an item's transforms. With the
+train loaders' worker processes (``num_workder > 0``) the items are seeded
+in the workers, so the draws no longer share the process RNG with them.
 """
 from __future__ import annotations
 

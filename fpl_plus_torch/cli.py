@@ -27,6 +27,12 @@ CLI runs the named stage alone. ``main_nll_clslsr`` (``... nll_clslsr
 [stage] cfg``) runs the CLSLSR confidence-map stage: ``slsr_conf/`` maps
 and the ``<train_csv>_clslsr.csv`` manifest.
 
+``main_convert`` (``python -m fpl_plus_torch.cli convert
+in/prefix_IT.ckpt cfg out/prefix_IT.pt``) turns a checkpoint the JAX
+package wrote into a port checkpoint with its latest pointer
+(``utils/convert.py``; no optimizer state, so a resume from it starts a
+fresh optimizer); the JAX package's ``fpl_convert`` goes the other way.
+
 ``main_eval_seg`` (``python -m fpl_plus_torch.metrics cfg``) runs the
 evaluation reports alone (the reference's ``pymic_eval_seg``) and
 ``main_eval_cls`` (``python -m fpl_plus_torch.metrics.cls_metrics cfg``)
@@ -50,6 +56,7 @@ from fpl_plus_torch.config.parser import (logging_config, parse_config,
 from fpl_plus_torch.device import resolve_device
 from fpl_plus_torch.metrics.cls_metrics import main_eval_cls  # noqa: F401
 from fpl_plus_torch.metrics.evaluate import eva_main
+from fpl_plus_torch.utils.convert import convert_jax_checkpoint
 from fpl_plus_torch.utils.precision import apply_matmul_precision
 
 
@@ -183,11 +190,33 @@ def main_eval_seg(argv=None):
     return 0
 
 
+def main_convert(argv=None):
+    """``in/prefix_IT.ckpt cfg out/prefix_IT.pt``: a JAX checkpoint of the
+    cfg's ``[network]`` as a port checkpoint (host only)."""
+    argv = argv if argv is not None else sys.argv[1:]
+    parser = argparse.ArgumentParser(
+        prog='python -m fpl_plus_torch.cli convert')
+    parser.add_argument('jax_ckpt')
+    parser.add_argument('cfg')
+    parser.add_argument('out', help='{ckpt_dir}/{prefix}_{iteration}.pt')
+    args = parser.parse_args(argv)
+    for path in (args.jax_ckpt, args.cfg):
+        if not os.path.isfile(path):
+            raise ValueError('The file does not exist: {0}'.format(path))
+    logging.basicConfig(level=logging.INFO)
+    written = convert_jax_checkpoint(args.jax_ckpt, parse_config(args.cfg),
+                                     args.out)
+    logging.info('converted %s -> %s', args.jax_ckpt, written)
+    return 0
+
+
 def shell(argv) -> int:
-    """``[ssl | wsl | nll | nll_clslsr] stage cfg [--device]`` from the
-    shell."""
+    """``[ssl | wsl | nll | nll_clslsr] stage cfg [--device]`` or
+    ``convert ckpt cfg out`` from the shell."""
     if argv and argv[0] in PARADIGM_MAINS:
         return PARADIGM_MAINS[argv[0]](argv[1:])
+    if argv and argv[0] == 'convert':
+        return main_convert(argv[1:])
     return main(argv)
 
 

@@ -21,6 +21,10 @@ reference's ``torch.save`` is synchronous and not atomic):
   the copy must finish before the next step) and a single worker thread
   pickles and writes. ``flush()`` drains the queue and re-raises the first
   worker error; the agent flushes before anything reads the files.
+
+``average_checkpoints`` is the uniform mean of checkpoints' state dicts
+(the JAX package's ``engine/ckpt.py:221-239``), which
+``utils/model_operate.py`` writes out.
 """
 from __future__ import annotations
 
@@ -78,6 +82,32 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
             raise KeyError('{0} is not a reference-layout checkpoint (no '
                            '{1!r})'.format(path, key))
     return ckpt
+
+
+# the state-dict entries that are batch statistics, not parameters
+STATISTICS = ('running_mean', 'running_var', 'num_batches_tracked')
+
+
+def average_checkpoints(paths: List[str]) -> Dict[str, torch.Tensor]:
+    """The uniform mean of the ``model_state_dict`` of the checkpoints at
+    ``paths``, entry by entry, accumulated in float64 and cast to the
+    first checkpoint's dtypes (an integer entry truncates, as numpy's
+    ``astype`` does in the JAX package)."""
+    if not paths:
+        raise ValueError('no checkpoints to average')
+    acc, template = None, None
+    for path in paths:
+        sd = load_checkpoint(path)['model_state_dict']
+        if template is None:
+            template = sd
+            acc = {k: v.to(torch.float64) for k, v in sd.items()}
+        else:
+            if set(sd) != set(acc):
+                raise ValueError('{0} holds other entries than {1}'.format(
+                    path, paths[0]))
+            for k, v in sd.items():
+                acc[k] += v.to(torch.float64)
+    return {k: (acc[k] / len(paths)).to(template[k].dtype) for k in acc}
 
 
 def _fsync_dir(path: str) -> None:

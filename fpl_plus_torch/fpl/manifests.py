@@ -52,3 +52,12 @@ def random_split_csv(input_file: str, outputs: Sequence[Tuple[str, int]],
             f.write(head)
             f.writelines(chunk)
 
+
+def create_pair_csv(gt_names: Sequence[str], seg_names: Sequence[str],
+                    output_file: str) -> None:
+    """Ground-truth / segmentation pair CSV (columns ``gt``, ``seg``) for
+    ``eva_main``."""
+    if len(gt_names) != len(seg_names):
+        raise ValueError('{0} ground truths, {1} segmentations'.format(
+            len(gt_names), len(seg_names)))
+    _write_rows(output_file, ['gt', 'seg'], list(zip(gt_names, seg_names)))

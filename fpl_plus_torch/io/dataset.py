@@ -27,11 +27,21 @@ same rows every epoch (``cache_bytes`` > 0):
   stash (RandomCrop's foreground box). Cache-safe transforms draw no random
   numbers, so the random tail sees the same inputs and the same random
   stream as without the cache: the samples are identical.
+
+The variants (reference nifty_dataset.py, the JAX package's
+``io/dataset.py``): ``NiftyDatasetDual`` loads its ``pixel_weight_nonl``
+column into the ``image1`` slot (:14-104); ``NiftyDatasetNpy`` reads the
+``.npy`` pseudo-label bundles of its ``label`` column, ``predict`` /
+``pixel_wise_weight`` / ``sample_wise_weight`` with ``train_fpl_uda``
+(:220-324); ``ClassificationDataset`` a class index per row (:327-379);
+``H5Dataset`` image / label pairs of HDF5 files named in a list file
+(h5_dataset.py:12-45; h5py is imported when an item is read).
 """
 from __future__ import annotations
 
 import csv
 import logging
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -139,8 +149,9 @@ class NiftyDataset:
         pixel_weight = np.where(pixel_weight < 1, 0.0, pixel_weight)
         return (pixel_weight * image_weight).astype(np.float32)
 
-    def _raw_sample(self, idx) -> dict:
-        """The untransformed sample dict (decode and weight composition)."""
+    def _image_sample(self, idx) -> dict:
+        """Row ``idx``'s images (channels concatenated, float32), the first
+        one's name and geometry."""
         names_list, image_list = [], []
         image_dict = None
         for i in range(self.modal_num):
@@ -149,10 +160,15 @@ class NiftyDataset:
             names_list.append(image_name)
             image_list.append(image_dict['data_array'])
         image = np.asarray(np.concatenate(image_list, axis=0), np.float32)
-        sample = {'image': image, 'names': names_list[0],
-                  'origin': image_dict['origin'],
-                  'spacing': image_dict['spacing'],
-                  'direction': image_dict['direction']}
+        return {'image': image, 'names': names_list[0],
+                'origin': image_dict['origin'],
+                'spacing': image_dict['spacing'],
+                'direction': image_dict['direction']}
+
+    def _raw_sample(self, idx) -> dict:
+        """The untransformed sample dict (decode and weight composition)."""
+        sample = self._image_sample(idx)
+        image = sample['image']
         if self.with_label:
             sample['label'] = self._load_array(idx, self.label_idx, np.int32)
             if image.shape[1:] != sample['label'].shape[1:]:
@@ -209,6 +225,56 @@ class NiftyDataset:
         return sample
 
 
+class NiftyDatasetDual(NiftyDataset):
+    """A ``NiftyDataset`` whose ``pixel_weight_nonl`` column, not
+    ``image1``, feeds the ``image1`` slot."""
+
+    def __init__(self, root_dir, csv_file, modal_num=1, with_label=False,
+                 transform=None, cache_bytes=0, transform_cache=True):
+        super().__init__(root_dir, csv_file, modal_num, with_label,
+                         transform, cache_bytes, transform_cache)
+        self.image1_idx = (self.columns.index('pixel_weight_nonl')
+                           if 'pixel_weight_nonl' in self.columns else None)
+
+
+class NiftyDatasetNpy(NiftyDataset):
+    """Pseudo-label bundles: with ``train_fpl_uda`` the ``label`` column
+    names ``.npy`` dicts whose ``predict`` is the label,
+    ``pixel_wise_weight`` the pixel weight (a channel axis added) and
+    ``sample_wise_weight`` the image weight; without it the label column
+    names label images. No weight or ``image1`` column is read."""
+
+    def __init__(self, root_dir, csv_file, modal_num=1, train_fpl_uda=False,
+                 with_label=False, transform=None, cache_bytes=0,
+                 transform_cache=True):
+        super().__init__(root_dir, csv_file, modal_num, with_label,
+                         transform, cache_bytes, transform_cache)
+        self.train_fpl_uda = train_fpl_uda
+        self.image_weight_idx = None
+        self.pixel_weight_idx = None
+        self.image1_idx = None
+
+    def _raw_sample(self, idx):
+        sample = self._image_sample(idx)
+        if self.with_label:
+            name = '{0}/{1}'.format(self.root_dir,
+                                    self.rows[idx][self.label_idx])
+            if self.train_fpl_uda:
+                bundle = load_image_as_nd_array(name).item()
+                sample['label'] = np.asarray(bundle['predict'], np.int32)
+                sample['pixel_weight'] = np.expand_dims(
+                    np.asarray(bundle['pixel_wise_weight'], np.float32), 0)
+                sample['image_weight'] = np.float32(
+                    bundle['sample_wise_weight'])
+            else:
+                sample['label'] = np.asarray(
+                    load_image_as_nd_array(name)['data_array'], np.int32)
+            if sample['image'].shape[1:] != sample['label'].shape[1:]:
+                raise ValueError('label shape {0} != image shape {1}'.format(
+                    sample['label'].shape[1:], sample['image'].shape[1:]))
+        return sample
+
+
 class ClassificationDataset(NiftyDataset):
     """Images with a scalar class label (reference
     nifty_dataset.py:327-379, the JAX package's ``ClassificationDataset``):
@@ -231,4 +297,30 @@ class ClassificationDataset(NiftyDataset):
         sample = {'image': image, 'names': names_list[0]}
         if self.with_label:
             sample['label'] = np.int64(self.rows[idx][self.label_idx])
+        return sample
+
+
+class H5Dataset:
+    """HDF5 image / label pairs: ``sample_list_name`` lists one file per
+    line, relative to ``root_dir``; each holds ``image`` (float32) and
+    ``label`` (int32) datasets."""
+
+    def __init__(self, root_dir: str, sample_list_name: str, transform=None):
+        self.root_dir = root_dir
+        with open(sample_list_name) as f:
+            self.sample_list = [line.strip() for line in f if line.strip()]
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.sample_list)
+
+    def __getitem__(self, idx):
+        import h5py
+        name = self.sample_list[idx]
+        with h5py.File(os.path.join(self.root_dir, name), 'r') as h5f:
+            sample = {'image': np.asarray(h5f['image'], np.float32),
+                      'label': np.asarray(h5f['label'], np.int32),
+                      'names': name}
+        if self.transform:
+            sample = self.transform(sample)
         return sample

@@ -7,7 +7,9 @@ API parity with the reference loader
 metadata copied from a reference image. ``spacing`` is reported as (z, y, x)
 exactly like the reference's loader. Volumes (NIfTI, MetaImage) and the 2D
 images of the classification task (PNG, JPEG, TIFF, through PIL, which is
-imported inside the two functions that use it).
+imported inside the two functions that use it); a ``.npy`` loads as the
+pseudo-label bundle ``NiftyDatasetNpy`` reads. ``rotate_nifty_volume_to_lps``
+flips a negated axis-aligned volume into LPS.
 """
 from __future__ import annotations
 
@@ -59,6 +61,10 @@ def load_image_as_nd_array(image_name: str) -> dict:
         return load_nifty_volume_as_4d_array(image_name)
     if image_name.endswith(_RGB_EXT):
         return load_rgb_image_as_3d_array(image_name)
+    if image_name.endswith('.npy'):
+        # pseudo-label bundles: a dict with predict / pixel_wise_weight /
+        # sample_wise_weight (reference nifty_dataset.py:262-272)
+        return np.load(image_name, allow_pickle=True)
     raise ValueError('unsupported image format: {0}'.format(image_name))
 
 
@@ -95,3 +101,28 @@ def save_nd_array_as_image(data: np.ndarray, image_name: str,
         raise ValueError('unsupported array {0} for {1}: 3D volumes go to '
                          '.nii.gz, .nii, .mha and 2D arrays to .png, .jpg, '
                          '.jpeg, .tif'.format(data.shape, image_name))
+
+
+def rotate_nifty_volume_to_lps(image_dict: dict) -> dict:
+    """Flip a volume into LPS orientation when its direction is axis-aligned
+    but negated (reference image_read_write.py:151-203): each world axis
+    whose direction cosine is negative flips its array axis (x the last, z
+    the first spatial one) and negates its direction column. A dict without
+    a 3x3 direction comes back as it is."""
+    direction = np.asarray(image_dict['direction'], dtype=np.float64)
+    if direction.size != 9:
+        return image_dict
+    direction = direction.reshape(3, 3)
+    flips = []
+    new_dir = direction.copy()
+    # data_array is [C, D, H, W]: world x <-> W (axis 3), y <-> H, z <-> D
+    for world_axis, arr_axis in ((0, 3), (1, 2), (2, 1)):
+        if direction[world_axis, world_axis] < 0:
+            flips.append(arr_axis)
+            new_dir[:, world_axis] *= -1
+    if flips:
+        image_dict = dict(image_dict)
+        image_dict['data_array'] = np.flip(image_dict['data_array'],
+                                           flips).copy()
+        image_dict['direction'] = tuple(new_dir.reshape(-1))
+    return image_dict

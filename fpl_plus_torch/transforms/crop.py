@@ -26,18 +26,8 @@ import numpy as np
 from scipy import ndimage
 
 from fpl_plus_torch.transforms.abstract import AbstractTransform
-
-
-def get_nd_bounding_box(volume: np.ndarray):
-    """Bounding box (min, max-exclusive per axis) of the nonzero region."""
-    nz = np.nonzero(volume)
-    bb_min = [int(ix.min()) for ix in nz]
-    bb_max = [int(ix.max()) + 1 for ix in nz]
-    return bb_min, bb_max
-
-
-def _crop(volume: np.ndarray, bb_min, bb_max) -> np.ndarray:
-    return volume[tuple(slice(lo, hi) for lo, hi in zip(bb_min, bb_max))]
+from fpl_plus_torch.utils.image_process import (
+    crop_nd_volume_with_bounding_box as _crop, get_nd_bounding_box)
 
 
 class CenterCrop(AbstractTransform):

@@ -1,6 +1,6 @@
 """Weight bridge: JAX-package variables -> this package's state dicts (the
 reference PyTorch key layout for UNet2D5_dsbn and ``Dis``, the flax scopes
-for the other networks).
+for the other networks), and the converter of JAX checkpoints.
 
 The JAX variables arrive as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so no JAX is needed here. The mapping is the reference
@@ -44,9 +44,25 @@ an explicit scope name is kept, an automatic one shortened (``_SCOPES``,
 is a transposed convolution under ``ConvTranspose_{k}`` or ``upconv{..}``,
 a dense layer when it has two axes (``[in, out]`` -> ``[out, in]``), else a
 convolution.
+
+``convert_jax_checkpoint`` (``python -m fpl_plus_torch.cli convert
+in/prefix_IT.ckpt cfg out/prefix_IT.pt``) turns a JAX checkpoint (flax
+msgpack of ``{'iteration', 'valid_pred', 'state': {params, batch_stats,
+opt_state[, extra]}}``, read by ``utils/flax_msgpack.py``) into a
+reference-layout ``.pt`` with its latest pointer (``engine/ckpt.py``). The
+``[network]`` section picks the bridge: the classification nets, a
+``MultiNet`` (its top-level scopes are ``{Class}_0`` .. ``{Class}_{n-1}``),
+UNet2D5_dsbn / UNet2D5, else ``state_dict_from_flax``. A JAX discriminator
+(``extra['dis_params']``) becomes ``dis_state_dict``, an EMA teacher
+(``extra`` a params tree) ``ema_state_dict``. No optimizer state is
+written, as the JAX package's own converter writes ``opt_state = ()``: a
+resume from a converted checkpoint starts a fresh optimizer (and a fresh
+discriminator optimizer) whose schedule is offset by the iteration.
 """
 from __future__ import annotations
 
+import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -282,3 +298,74 @@ def state_dict_from_cls(params: Dict, batch_stats: Dict,
                                          if k.endswith('num_batches_tracked')
                                          else np.float32))
             for k, v in sd.items()}
+
+
+CLS_NETS = ('resnet18', 'vgg16', 'mobilenetv2')
+
+
+def _host_tree(tree):
+    """Nested dicts with numpy leaves (a bf16 tensor of the msgpack reader
+    widened to f32)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def _multinet_peers(params: Dict) -> bool:
+    """Whether ``params`` is a flax MultiNet's: its top-level scopes are
+    ``{Class}_0`` .. ``{Class}_{n-1}`` of one class, n >= 2."""
+    found = [re.fullmatch(r'(.+)_(\d+)', k) for k in params]
+    if len(found) < 2 or not all(found):
+        return False
+    return (len({m.group(1) for m in found}) == 1
+            and sorted(int(m.group(2)) for m in found)
+            == list(range(len(found))))
+
+
+def state_dict_from_variables(params: Dict, batch_stats: Dict,
+                              net_cfg: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``(params, batch_stats)`` of the ``[network]`` net -> the port's
+    state dict, through the bridge that net needs."""
+    net_type = net_cfg['net_type']
+    if net_type in CLS_NETS:
+        return state_dict_from_cls(params, batch_stats, net_type)
+    if _multinet_peers(params):
+        return state_dict_from_multinet(params, batch_stats, net_cfg)
+    if net_type in ('UNet2D5', 'UNet2D5_dsbn'):
+        return state_dict_from_jax(params, batch_stats, net_cfg)
+    return state_dict_from_flax(params, batch_stats)
+
+
+def convert_jax_checkpoint(ckpt_path: str, config: Dict,
+                           out_path: str) -> str:
+    """Write the JAX checkpoint ``ckpt_path`` of the ``config``'s network as
+    the port checkpoint ``out_path`` (``{ckpt_dir}/{prefix}_{it}.pt``) and
+    its latest pointer; returns the path written."""
+    from fpl_plus_torch.engine import ckpt as ckpt_lib
+    from fpl_plus_torch.utils.flax_msgpack import unpackb
+    match = re.fullmatch(r'(.+)_(\d+)\.pt', os.path.basename(out_path))
+    if match is None:
+        raise ValueError('the output must be named <prefix>_<iteration>.pt, '
+                         'got {0}'.format(out_path))
+    with open(ckpt_path, 'rb') as f:
+        payload = _host_tree(unpackb(f.read()))
+    if not isinstance(payload, dict) or 'state' not in payload:
+        raise ValueError('{0} is not a JAX checkpoint (no state)'.format(
+            ckpt_path))
+    state = payload['state']
+    net_cfg = config['network']
+    batch_stats = state.get('batch_stats') or {}
+    out = {'model_state_dict': state_dict_from_variables(
+        state['params'], batch_stats, net_cfg)}
+    extra = state.get('extra') or {}
+    if 'dis_params' in extra:
+        out['dis_state_dict'] = dis_state_dict_from_jax(extra['dis_params'])
+    elif extra:
+        teacher = state_dict_from_variables(extra, batch_stats, net_cfg)
+        out['ema_state_dict'] = {k: v for k, v in teacher.items()
+                                 if not k.endswith(ckpt_lib.STATISTICS)}
+    return ckpt_lib.save_checkpoint(
+        os.path.dirname(out_path) or '.', match.group(1),
+        int(match.group(2)), out, payload.get('valid_pred', 0.0))

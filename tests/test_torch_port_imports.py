@@ -42,7 +42,7 @@ def test_fresh_import_of_every_module_loads_no_forbidden_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 58    # evaluation, native, NLL, cls included
+    assert int(n_modules) >= 61    # ... NLL, cls, checkpoint tools included
     assert bad == '[]'
 
 
@@ -74,11 +74,30 @@ def test_source_scan_finds_no_forbidden_import():
                    'agents/nll.py', 'agents/nll_clslsr.py',
                    'agents/agent_cls.py', 'utils/make_noise.py',
                    'losses/cls.py', 'models/cls_nets.py',
-                   'metrics/cls_metrics.py'):
+                   'metrics/cls_metrics.py', 'io/loader.py', 'io/dataset.py',
+                   'utils/flax_msgpack.py', 'utils/convert.py',
+                   'utils/model_operate.py', 'utils/preprocess.py',
+                   'utils/image_process.py'):
         assert pkg / module in sources
     for path in sources:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, '{0} imports {1}'.format(path, bad)
+
+
+def test_loader_worker_chain_imports_no_torch():
+    """What a loader worker process imports (the forkserver's preload:
+    the loader, the datasets and every transform) brings in no torch."""
+    code = ('import sys\n'
+            'import fpl_plus_torch.io.loader, fpl_plus_torch.io.dataset\n'
+            'import fpl_plus_torch.transforms.trans_dict\n'
+            'from fpl_plus_torch.io.loader import _PRELOAD\n'
+            'for name in _PRELOAD: __import__(name)\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("torch", "jax", "triton")))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'
 
 
 def test_resolve_device_has_no_silent_cpu_fallback():
