@@ -160,9 +160,31 @@ then runs, each phase failing the script on any error:
     committed JAX checkpoint ``tests/data/jax_ckpt/jax_3.ckpt`` (no JAX
     imported), then the port's forward of its window on the card, domains
     0 and 1, against the JAX logits stored beside it, by phase 3's
-    tolerance, 18 launches each.
+    tolerance, 18 launches each;
+30. scale-out partition math at full width: two spawned ranks on cuda:0,
+    a gloo group that the phase builds and hands to the port's ``Mesh``
+    (NCCL refuses two ranks on one card): the flagship joint step (4 + 4
+    crops split 2 + 2 per rank, the network's dropout from seeded card
+    generators, Adam, TF32 off) against one process on the same card from
+    the same weights, batch and generators, by phase 11's tolerances on
+    loss, class dice, gradients and both banks' running statistics, the
+    parameters after Adam equal where the gradient is above its tolerance
+    and both ranks' states equal; then the 40x160x272 volume with 4-flip
+    TTA sharded over windows (logits by phase 6's tolerance, labels by
+    phase 8's agreement), ``run_batch`` of 3 volumes sharded over volumes,
+    and the 6 dropout passes sharded over passes (logits, and the FPL pair
+    by phase 6's tolerances): correctness runs, host seconds printed, not
+    scaling;
+31. the NCCL path end to end at world size 1: ``cli train`` with
+    ``[training] multihost = True`` and the ``FPLX_*`` triple of one
+    process (group, warm-up, the three barriers through NCCL, the primary
+    rank's writes, the auto test stage, ``eva_main``, the group closed),
+    18 launches per eval forward; then an NCCL group of one in this
+    process: the sharded step and the sharded Inferer against the plain
+    ones, and both steps timed (CUDA events): the wrapper's cost. The
+    collectives' bytes per step and per volume are reckoned and printed.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-29) sets the
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31) sets the
 launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -3507,6 +3529,456 @@ def converter_phase(root, dev):
     return {'launches': 36, 'max_abs_err': max(errs.values())}
 
 
+DIST_RANKS = 2                   # phase 30: ranks sharing cuda:0
+# phase 30: the 6-pass fold's seeds and the reduction's selection margins
+DIST_PASS_SEEDS = [SEED + 300 + i for i in range(FPL_PASSES)]
+DIST_MARGINS = ([2, 5, 3], [1, 0, 7])
+DIST_SW = {'sliding_window_enable': True, 'sliding_window_size': WINDOW,
+           'sliding_window_stride': WINDOW, 'tta_mode': 1,
+           'patch_chunk': PATCH_CHUNK}
+NCCL_STEPS = 8                   # phase 31: timed steps of each version
+
+
+def dist_inputs():
+    """Phase 30's inputs: the full-width net's random weights (dropout
+    on), the global batch of the flagship step (4 + 4 crops) with the
+    seeds of its two domain forwards' dropout generators, and the
+    inference volumes."""
+    from fpl_plus_torch.models.registry import create_network
+    net = create_network(NET_CFG)
+    init_random_(net, SEED + 30)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    batches = [{k: v for k, v in train_inputs(gen, TRAIN_BATCH,
+                                              'cpu').items()}
+               for _ in range(2)]
+    rs = np.random.RandomState(SEED + 32)
+    volumes = rs.normal(0.0, 1.0, size=(N_VOLUMES, 1) + VOLUME).astype(
+        np.float32)
+    volumes[:, :, 12:28, 60:100, 100:170] += 1.5
+    return {'net': dict(NET_CFG), 'state': net.state_dict(),
+            'batches': batches, 'seeds': [SEED + 33, SEED + 34],
+            'volumes': volumes, 'sw': dict(DIST_SW),
+            'pass_seeds': DIST_PASS_SEEDS, 'margins': DIST_MARGINS}
+
+
+def sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def dist_step(inputs, dev, mesh=None):
+    """One flagship joint step (Adam, ``train_fpl_uda``, the network's
+    dropout from the seeded generators) with TF32 off: on the global batch,
+    or over ``mesh`` on this rank's rows. Returns the metrics, gradients
+    and state on the CPU, and the step's host seconds."""
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.parallel import (make_sharded_train_step, replicate,
+                                         shard_batch)
+    net = create_network(inputs['net'])
+    net.load_state_dict(inputs['state'])
+    net = net.to(dev)
+    step = make_step(net)
+    batches = inputs['batches']
+    if mesh is not None:
+        replicate(net, mesh)
+        step = make_sharded_train_step(step, mesh)
+        batches = shard_batch(batches, mesh)
+    gens = [[torch.Generator(dev).manual_seed(s)] for s in inputs['seeds']]
+    with tf32_off():
+        t0 = time.perf_counter()
+        metrics = step([{k: v.to(dev) for k, v in b.items()}
+                        for b in batches], gens)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    return {'metrics': {k: v.detach().cpu() for k, v in metrics.items()},
+            'grads': {k: p.grad.detach().cpu()
+                      for k, p in net.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in net.state_dict().items()},
+            'step_s': seconds}
+
+
+def dist_infer(inputs, dev, mesh=None):
+    """Phase 30's inference with TF32 off, over ``mesh`` when given: the
+    first volume with 4-flip TTA (logits and labels), ``run_batch`` of all
+    three (labels), the 6 dropout passes of the first (logits) and their
+    FPL reduction. Returns the results, the kernel launches and the host
+    seconds of each call."""
+    from fpl_plus_torch.agents.agent_seg import head_predictor
+    from fpl_plus_torch.engine.infer import Inferer, PassFold
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    net = create_network(inputs['net'])
+    net.load_state_dict(inputs['state'])
+    predict = head_predictor(net.to(dev).eval(), DOMAIN)
+    logits_inf = Inferer(dict(inputs['sw'], output_mode='logits'), dev,
+                         mesh=mesh)
+    label_inf = Inferer(dict(inputs['sw'], output_mode='label'), dev,
+                        mesh=mesh)
+    volume = inputs['volumes'][:1]
+    fold = PassFold(predict, inputs['pass_seeds'], dev)
+    passes = len(inputs['pass_seeds'])
+    calls = (('run', lambda: logits_inf.run(predict, volume)),
+             ('run_batch', lambda: label_inf.run_batch(predict,
+                                                       inputs['volumes'])),
+             ('run_passes', lambda: logits_inf.run_passes(fold, volume,
+                                                          passes)),
+             ('fpl', lambda: label_inf.run_fpl_uncertainty(
+                 fold, volume, passes, inputs['margins'])))
+    out, seconds = {}, {}
+    with tf32_off():
+        dsbn_prelu.launches = 0      # the main path's count starts here
+        for name, call in calls:
+            t0 = time.perf_counter()
+            out[name] = call()
+            sync(dev)
+            seconds[name] = time.perf_counter() - t0
+        launches = dsbn_prelu.launches
+    return {'infer': out, 'launches': launches, 'infer_s': seconds}
+
+
+def dist_rank(rank, port, work, device):
+    """Rank ``rank`` of phase 30: a gloo group of DIST_RANKS processes on
+    ``device`` (cuda:0), the port's Mesh over it; its inputs come from and
+    its results go to ``work``."""
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from fpl_plus_torch.parallel.mesh import Mesh
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    dist.init_process_group('gloo', init_method='tcp://localhost:{0}'.format(
+        port), world_size=DIST_RANKS, rank=rank)
+    try:
+        mesh = Mesh(dist.group.WORLD, dev)
+        inputs = torch.load(os.path.join(work, 'inputs.pt'),
+                            weights_only=False)
+        out = dict(dist_step(inputs, dev, mesh), **dist_infer(inputs, dev,
+                                                              mesh))
+        if rank:                  # the other rank's state only: replicas
+            out = {'state': out['state'], 'launches': out['launches']}
+        torch.save(out, os.path.join(work, 'rank{0}.pt'.format(rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def compare_steps(got, want, lr=1e-4):
+    """Phase 11's tolerances on loss, class dice, gradients and running
+    statistics; the parameters after the (first) Adam update equal where
+    the gradient is above its tolerance (Adam moves every such parameter
+    by the rate times its sign), and may differ by up to twice the rate
+    only where the gradient is within it (a sign at the noise level).
+    Returns the errors; raises on a miss."""
+    loss_err = abs(float(got['metrics']['loss'])
+                   - float(want['metrics']['loss']))
+    dice_err = max(float((got['metrics'][k] - want['metrics'][k]).abs().max())
+                   for k in ('class_dice_0', 'class_dice_1'))
+    grads = want['grads']
+    top = max(float(g.abs().max()) for g in grads.values())
+    worst, worst_name, flips = 0.0, None, 0
+    for name, g in grads.items():
+        tol = GRAD_RTOL * float(g.abs().max()) + GRAD_NET_TOL * top
+        err = float((got['grads'][name] - g).abs().max())
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+        moved = (got['state'][name] - want['state'][name]).abs()
+        check(float(moved.max()) <= 2 * lr * (1 + 1e-3),
+              'parameter {0} off by {1:.3g} after Adam'.format(
+                  name, float(moved.max())))
+        off = moved > 1e-2 * lr
+        check(bool((g.abs()[off] <= tol).all()),
+              'parameter {0} moved otherwise where its gradient is above '
+              'the tolerance'.format(name))
+        flips += int(off.sum())
+    stats_err = 0.0
+    for name, t in want['state'].items():
+        if name.endswith(('running_mean', 'running_var')):
+            stats_err = max(stats_err, float(
+                (got['state'][name] - t).abs().max() / t.abs().max()))
+    check(loss_err <= STEP_LOSS_TOL, 'loss off by {0:.3g}'.format(loss_err))
+    check(dice_err <= STEP_DICE_TOL, 'dice off by {0:.3g}'.format(dice_err))
+    check(worst <= 1.0, 'gradient {0} at {1:.3g} of its tolerance'.format(
+        worst_name, worst))
+    check(stats_err <= STATS_TOL, 'running statistics off by {0:.3g}'.format(
+        stats_err))
+    return {'loss_err': loss_err, 'dice_err': dice_err, 'grad_worst': worst,
+            'stats_err': stats_err, 'noise_flips': flips}
+
+
+def compare_infer(got, want):
+    """Phase 6 / 8's tolerances: logits within FWD_TOL x max(1, |logit|),
+    labels agreeing on BATCH_AGREE of the voxels, the FPL pair within
+    REDUCE_RTOL and max(1, REDUCE_COUNT_TOL x voxels)."""
+    errs = {}
+    for name in ('run', 'run_passes'):
+        a, b = got[name], want[name]
+        check(a.shape == b.shape and bool(np.isfinite(a).all()),
+              '{0}: shape {1} vs {2}'.format(name, a.shape, b.shape))
+        errs[name] = float(np.abs(a - b).max())
+        check(errs[name] <= FWD_TOL * max(1.0, float(np.abs(b).max())),
+              '{0} logits off by {1:.3g}'.format(name, errs[name]))
+    labels = np.argmax(want['run'], 1)
+    errs['run_agree'] = float(np.mean(np.argmax(got['run'], 1) == labels))
+    errs['batch_agree'] = float(np.mean(got['run_batch']
+                                        == want['run_batch']))
+    check(got['run_batch'].shape == (N_VOLUMES,) + VOLUME,
+          'run_batch shape {0}'.format(got['run_batch'].shape))
+    for key in ('run_agree', 'batch_agree'):
+        check(errs[key] >= BATCH_AGREE, '{0} {1:.6f}'.format(key, errs[key]))
+    (v_got, b_got), (v_want, b_want) = got['fpl'], want['fpl']
+    n_sel = int(np.prod([s - a - b for s, a, b in zip(
+        VOLUME, *DIST_MARGINS)]))
+    check(np.isfinite(v_got) and v_want > 0
+          and abs(v_got - v_want) <= REDUCE_RTOL * abs(v_want),
+          'vars_sum {0} vs {1}'.format(v_got, v_want))
+    check(abs(b_got - b_want) <= max(1, REDUCE_COUNT_TOL * n_sel),
+          'boundary {0} vs {1}'.format(b_got, b_want))
+    errs['vars_sum'] = (v_got, v_want)
+    errs['boundary'] = (b_got, b_want)
+    return errs
+
+
+def scale_out_bytes(n_params):
+    """The bytes the scale-out collectives move (reckoned from the shapes,
+    f32): per flagship step and per volume."""
+    crops = TRAIN_BATCH * int(np.prod(WINDOW))
+    chns = NET_CFG['feature_chns']
+    # the 18 DSBN layers' channels: two per encoder block and per decoder
+    # block (the decoder at the encoder's widths, deepest first)
+    layers = [c for c in chns for _ in range(2)] + [
+        c for c in chns[-2::-1] for _ in range(2)]
+    return {'grad_allreduce': 4 * n_params,
+            'logits_gather_per_domain': 4 * crops * NET_CFG['class_num'],
+            'targets_gather_per_domain': 4 * crops * (
+                NET_CFG['class_num'] + 1) + 4 * TRAIN_BATCH,
+            'stats_allreduce_per_step': sum(4 * (2 * c + 1) for c in layers)
+            * 2 * 2,
+            'stats_allreduces_per_step': len(layers) * 2 * 2,
+            'accumulator_per_volume': 4 * TTA_VARIANTS
+            * NET_CFG['class_num'] * int(np.prod(VOLUME))}
+
+
+def scale_out_phase(dev):
+    """Phase 30: the partition math at full width, 2 gloo ranks on cuda:0
+    against one process on the same card (TF32 off)."""
+    import torch.multiprocessing as tmp
+    from fpl_plus_torch.engine.infer import window_grid
+    from fpl_plus_torch.parallel.multihost import free_local_port
+    inputs = dist_inputs()
+    want = dict(dist_step(inputs, dev), **dist_infer(inputs, dev))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as work:
+        torch.save(inputs, os.path.join(work, 'inputs.pt'))
+        t0 = time.perf_counter()
+        tmp.start_processes(dist_rank, args=(free_local_port(), work,
+                                             str(dev)),
+                            nprocs=DIST_RANKS, join=True,
+                            start_method='spawn')
+        wall = time.perf_counter() - t0
+        got = [torch.load(os.path.join(work, 'rank{0}.pt'.format(r)),
+                          weights_only=False) for r in range(DIST_RANKS)]
+    step = compare_steps(got[0], want)
+    for name, t in got[0]['state'].items():
+        check(torch.equal(t, got[1]['state'][name]),
+              'the ranks disagree on {0}'.format(name))
+    infer = compare_infer(got[0]['infer'], want['infer'])
+    launches = sum(g['launches'] for g in got)
+    fwd = -(-len(window_grid(VOLUME, WINDOW, WINDOW)) // PATCH_CHUNK)
+    check(launches > 0 and launches % 18 == 0,
+          '{0} kernel launches in the ranks'.format(launches))
+    print('scale-out (phase 30, 2 gloo ranks on one card, correctness run, '
+          'not scaling): step loss err {0:.3g}, dice err {1:.3g}, gradients '
+          'at {2:.3g} of phase 11\'s tolerance, running statistics {3:.3g}, '
+          '{4} parameters moved by a noise-level gradient sign; window-'
+          'sharded logits err {5:.3g}, label agreement {6:.6f}, volume-'
+          'sharded labels {7:.6f}, pass-sharded logits err {8:.3g}, FPL '
+          '(vars_sum, boundary) {9} vs one process {10}; {11} kernel launches over the ranks ({12} forwards '
+          'per volume unsharded); host seconds: one process step {13:.3f}, '
+          'rank 0 step {14:.3f}, one process inference {15}, rank 0 '
+          'inference {16}, ranks wall {17:.1f} s'.format(
+              step['loss_err'], step['dice_err'], step['grad_worst'],
+              step['stats_err'], step['noise_flips'], infer['run'],
+              infer['run_agree'], infer['batch_agree'], infer['run_passes'],
+              (infer['vars_sum'][0], infer['boundary'][0]),
+              (infer['vars_sum'][1], infer['boundary'][1]), launches, fwd,
+              want['step_s'],
+              got[0]['step_s'],
+              {k: round(v, 3) for k, v in want['infer_s'].items()},
+              {k: round(v, 3) for k, v in got[0]['infer_s'].items()}, wall))
+    return {'launches': launches, 'step': step, 'infer': infer,
+            'step_s': {'one': want['step_s'], 'rank0': got[0]['step_s']},
+            'infer_s': {'one': want['infer_s'], 'rank0': got[0]['infer_s']},
+            'ranks_wall_s': wall}
+
+
+@contextlib.contextmanager
+def fplx_env(port):
+    """The ``FPLX_*`` triple of one process on this host."""
+    keys = ('FPLX_COORDINATOR', 'FPLX_NUM_PROCESSES', 'FPLX_PROCESS_ID')
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update({'FPLX_COORDINATOR': 'localhost:{0}'.format(port),
+                       'FPLX_NUM_PROCESSES': '1', 'FPLX_PROCESS_ID': '0'})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def watching_barriers(seen):
+    """Record (tag, backend, world) of every ``multihost.barrier``."""
+    import torch.distributed as dist
+    from fpl_plus_torch.parallel import multihost
+    real = multihost.barrier
+
+    def watch(tag='sync'):
+        seen.append((tag, dist.get_backend(), dist.get_world_size()))
+        return real(tag)
+
+    multihost.barrier = watch
+    try:
+        yield seen
+    finally:
+        multihost.barrier = real
+
+
+def multihost_cli_phase(root, dev, fwd_per_volume):
+    """Phase 31, first half: ``cli train`` with ``[training] multihost =
+    True`` and the ``FPLX_*`` triple of one process (an NCCL group of one
+    rank), its auto test stage and ``eva_main``."""
+    import torch.distributed as dist
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.parallel.multihost import free_local_port
+    cfg = train_cfg(root, 'mh', ckpt='mh', stop=2,
+                    extra='multihost = True\nmesh_devices = 1',
+                    evaluation=EVAL_SECTION.format(root=root))
+    seen = []
+    t0 = time.perf_counter()
+    with fplx_env(free_local_port()), watching_barriers(seen), \
+            counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['train', cfg], device=str(dev))
+        launches = dsbn_prelu.launches
+    wall = time.perf_counter() - t0
+    check(rc == 0, 'multihost cli rc {0}'.format(rc))
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    check(not dist.is_initialized(), 'the process group outlived the CLI')
+    tags = [t for t, _, _ in seen]
+    check({'train-ckpt-written', 'pre-ckpt-resolve', 'pre-exit'} <= set(tags)
+          and all(b == backend and w == 1 for _, b, w in seen),
+          'barriers {0}'.format(seen))
+    ckpt_dir = os.path.join(root, 'model', 'mh')
+    for name in ('mh_2.pt', 'mh_latest.txt', 'mh_best.txt'):
+        check(os.path.isfile(os.path.join(ckpt_dir, name)), name)
+    with open(os.path.join(ckpt_dir, 'scalars.jsonl')) as f:
+        rows = [(r['tag'], r['step']) for r in map(json.loads, f)]
+    check(rows and len(rows) == len(set(rows)), 'scalar rows written twice')
+    seg = os.path.join(root, 'out_train_mh', 'mh_target_test')
+    labels = [n for n in os.listdir(seg) if n.endswith('.nii.gz')]
+    check(len(labels) == N_VOLUMES, 'auto test labels {0}'.format(labels))
+    for metric in ('dice', 'assd'):
+        vals = [float(r[1]) for r in read_csv(os.path.join(
+            seg, 'test_block_{0}_all.csv'.format(metric)))[1:]]
+        check(vals and all(np.isfinite(vals)), '{0} {1}'.format(metric,
+                                                                vals))
+    n_eval = (2 + N_VOLUMES) + N_VOLUMES     # one validation, the test
+    check(forwards[0] == n_eval * fwd_per_volume,
+          '{0} eval forwards, expected {1}'.format(
+              forwards[0], n_eval * fwd_per_volume))
+    check(launches == 18 * forwards[0], '{0} launches for {1} forwards'
+          .format(launches, forwards[0]))
+    print('multihost cli (phase 31, NCCL, 1 rank): rc 0, barriers {0}, {1} '
+          'eval forwards, {2} kernel launches, {3} labels, wall {4:.1f} s'
+          .format(tags, forwards[0], launches, len(labels), wall))
+    return {'launches': launches, 'barriers': tags, 'wall_s': wall}
+
+
+def nccl_world1_phase(dev):
+    """Phase 31, second half: an NCCL group of one rank in this process;
+    the sharded step and the sharded Inferer against the plain ones (TF32
+    off), then both steps timed (CUDA events, TF32 as PyTorch's default)."""
+    import torch.distributed as dist
+    from fpl_plus_torch.engine.infer import Inferer
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.parallel import (make_mesh, make_sharded_train_step,
+                                         multihost)
+    inputs = dist_inputs()
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    check(multihost.maybe_initialize_distributed(
+        {'training': {'multihost': True}}, dev.type,
+        coordinator='localhost:{0}'.format(multihost.free_local_port())),
+        'no NCCL group formed')
+    try:
+        check(dist.get_backend() == backend and dist.get_world_size() == 1,
+              'group {0} of {1}'.format(dist.get_backend(),
+                                        dist.get_world_size()))
+        mesh = make_mesh(1, dev)
+        step = compare_steps(dist_step(inputs, dev, mesh),
+                             dist_step(inputs, dev))
+        net = create_network(NET_CFG)
+        net.load_state_dict(inputs['state'])
+        net = net.to(dev).eval()
+
+        def predict(x):
+            return net(x, DOMAIN)
+
+        volume = inputs['volumes'][:1]
+        with tf32_off(), torch.no_grad():
+            plain = Inferer(dict(DIST_SW, output_mode='logits'), dev).run(
+                predict, volume)
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            sharded = Inferer(dict(DIST_SW, output_mode='logits'), dev,
+                              mesh=mesh).run(predict, volume)
+            launches = dsbn_prelu.launches
+        infer_err = float(np.abs(sharded - plain).max())
+        check(infer_err <= FWD_TOL * max(1.0, float(np.abs(plain).max())),
+              'world-1 Inferer off by {0:.3g}'.format(infer_err))
+        check(launches > 0, 'no kernel launch in the world-1 Inferer')
+        del net
+        # timed: the flagship step, plain and wrapped, one after the other
+        train = create_network(NET_CFG)
+        train.load_state_dict(inputs['state'])
+        train = train.to(dev)
+        plain_step = make_step(train)
+        wrapped = make_sharded_train_step(make_step(train), mesh)
+        batches = [{k: v.to(dev) for k, v in b.items()}
+                   for b in inputs['batches']]
+        times = {'plain': [], 'sharded': []}
+        for i in range(2 + NCCL_STEPS):
+            for name, fn in (('plain', plain_step), ('sharded', wrapped)):
+                gens = [[torch.Generator(dev).manual_seed(s + i)]
+                        for s in inputs['seeds']]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(batches, gens)
+                end.record()
+                end.synchronize()
+                if i >= 2:
+                    times[name].append(start.elapsed_time(end))
+    finally:
+        multihost.finalize_distributed()
+    check(not dist.is_initialized(), 'the NCCL group outlived the phase')
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    overhead = ms['sharded'] / ms['plain'] - 1.0
+    print('nccl world 1 (phase 31): sharded vs plain step loss err {0:.3g}, '
+          'gradients at {1:.3g} of tolerance, statistics {2:.3g}; sharded '
+          'Inferer vs plain max abs err {3:.3g}, {4} launches; step median '
+          'ms plain {5:.2f} sharded {6:.2f} ({7:+.2%}; {8} steps each after '
+          '2, alternating, f32 with TF32, 4+4 crops)'.format(
+              step['loss_err'], step['grad_worst'], step['stats_err'],
+              infer_err, launches, ms['plain'], ms['sharded'], overhead,
+              NCCL_STEPS))
+    return {'launches': launches, 'step': step, 'infer_err': infer_err,
+            'step_ms': ms, 'overhead': overhead}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -3565,6 +4037,11 @@ def main():
         pool = pool_phase(ws, train, fwd_per_volume)
         tools = host_tools_phase(ws, names, fwd_per_volume)
         converter = converter_phase(ws, dev)
+        scale_out = scale_out_phase(dev)
+        multihost_cli = multihost_cli_phase(ws, dev, fwd_per_volume)
+        nccl = nccl_world1_phase(dev)
+    bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
+    print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
@@ -3658,7 +4135,9 @@ def main():
                      + sum(r['launches'] for r in nll_cli.values()
                            if isinstance(r, dict))
                      + cls_cli['launches'] + pool['launches']
-                     + tools['launches'] + converter['launches']),
+                     + tools['launches'] + converter['launches']
+                     + scale_out['launches'] + multihost_cli['launches']
+                     + nccl['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -3729,6 +4208,16 @@ def main():
         'average_test_launches': tools['launches'],
         'converter_launches': converter['launches'],
         'converter_max_abs_err': converter['max_abs_err'],
+        'scale_out_launches': scale_out['launches'],
+        'scale_out_step': scale_out['step'],
+        'scale_out_infer': scale_out['infer'],
+        'scale_out_step_s': scale_out['step_s'],
+        'scale_out_infer_s': scale_out['infer_s'],
+        'multihost_cli_launches': multihost_cli['launches'],
+        'nccl_world1_step_ms': nccl['step_ms'],
+        'nccl_world1_overhead': nccl['overhead'],
+        'nccl_world1_launches': nccl['launches'],
+        'scale_out_bytes': bytes_,
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -24,6 +24,8 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
                FPL reduction, checkpoints (L5/L6 compute)
   agents/      orchestration agents: the segmentation train and test
                stages (L5)
+  parallel/    scale-out: data-parallel training and sharded inference
+               over ranks, one card each; the process group
   metrics/     dice / iou / assd / hd95 / rve / volume and the eva_main
                reports (``python -m fpl_plus_torch.metrics``)
   native/      the C++ raster-scan distance transform (ctypes, built at
@@ -45,8 +47,9 @@ ensembles, inverse transforms on the device or the host, post-processing)
 and the FPL MC-dropout uncertainty pass — the evaluation reports, the FPL
 weight tools, and every network, segmentation loss and transform of the
 JAX package's registries; the SSL, WSL, NLL and classification agents; the
-loader's worker pool, the converter of JAX checkpoints and the host tools.
-Scale-out is queued in ROADMAP.md.
+loader's worker pool, the converter of JAX checkpoints and the host tools;
+scale-out of the segmentation agent (the paradigm agents' data-parallel
+steps are queued in ROADMAP.md).
 """
 
 __version__ = "0.1.0"

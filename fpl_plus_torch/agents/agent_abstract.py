@@ -16,6 +16,20 @@ default, clamped to ``cpu_count - 1`` as in the JAX package
 (``agents/agent_abstract.py:124-127`` there); 0 keeps them in the main
 process. The valid and test loaders run in the main process. ``run()``
 shuts the pools down at its end and on error.
+
+Scale-out (the JAX package's ``agents/agent_abstract.py:66-81,150-195``):
+``get_mesh()`` is the stage's mesh over the ranks of the run
+(``parallel/mesh.py`` ``stage_mesh``), None on one device. With several
+hosts each host's train loaders read its row-strided manifest share
+(``host_shard``) in batches of ``train_batch_size / hosts`` (the global
+batch must divide), and every rank of a host runs the same seeded loaders
+and keeps its rows of that host batch (``parallel/mesh.py``
+``shard_batch``); on one host the ranks therefore train on exactly the
+batches of a one-card run. A host's worker budget is one process's: each
+of its ranks gets ``(cpu_count - 1) // local ranks`` workers. An agent
+without a data-parallel step (``data_parallel`` False: every agent but
+the segmentation agent) raises ``NotImplementedError`` under a mesh or in
+a multi-process run instead of training on one device.
 """
 from __future__ import annotations
 
@@ -29,7 +43,17 @@ import torch
 
 from fpl_plus_torch.io.dataset import NiftyDataset
 from fpl_plus_torch.io.loader import DataLoader
+from fpl_plus_torch.parallel import multihost
+from fpl_plus_torch.parallel.mesh import mesh_size_from_config, stage_mesh
 from fpl_plus_torch.transforms.trans_dict import Compose, TransformDict
+
+
+def scaled_out(config: dict, stage: str, device) -> bool:
+    """True when the stage asks for more than one rank or runs in a
+    multi-process group."""
+    return (mesh_size_from_config(config, stage, torch.device(device).type)
+            > 1 or multihost.process_info()[1] > 1
+            or multihost.multihost_requested(config))
 
 
 def seed_everything(seed: int) -> None:
@@ -39,13 +63,28 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+NOT_DATA_PARALLEL = (
+    '{0} has no data-parallel step yet: it runs on one device, in one '
+    'process (the data-parallel steps of the SSL, WSL and NLL agents are '
+    'queued in ROADMAP.md section 1, item 1); set mesh_devices = 1 and a '
+    'single-entry gpus list, without multihost')
+
+
 class NetRunAgent(ABC):
+    # True for an agent whose train and test stages run sharded over a mesh
+    data_parallel = False
+
     def __init__(self, config: dict, stage: str, device: torch.device):
         if stage not in ('train', 'inference', 'test'):
             raise ValueError('Undefined stage {0!r}'.format(stage))
         self.config = config
         self.stage = 'test' if stage == 'inference' else stage
         self.device = torch.device(device)
+        if not self.data_parallel and scaled_out(config, self.stage,
+                                                 self.device):
+            raise NotImplementedError(NOT_DATA_PARALLEL.format(
+                type(self).__name__))
+        self._mesh = False   # resolved by get_mesh()
         self.transform_list = []
         self.test_loader = None
         self.train_loaders = []
@@ -54,6 +93,18 @@ class NetRunAgent(ABC):
         self.random_seed = config.get('training', {}).get('random_seed', 1)
         if config.get('training', {}).get('deterministic', True):
             seed_everything(self.random_seed)
+
+    def get_mesh(self):
+        """The stage's mesh over the run's ranks, or None on one device
+        (resolved once)."""
+        if self._mesh is False:
+            self._mesh = stage_mesh(self.config, self.stage, self.device)
+        return self._mesh
+
+    def barrier(self, tag: str) -> None:
+        """A barrier over the stage's ranks (none on one device)."""
+        if self.get_mesh() is not None:
+            multihost.barrier(tag)
 
     def build_transform(self, stage_key: str):
         """Compose the transform chain of a stage ('train', 'valid' or
@@ -81,14 +132,17 @@ class NetRunAgent(ABC):
     def train_workers(self) -> int:
         """The train loaders' worker processes: ``[dataset] num_workder``
         (the reference's spelling) or ``num_worker``, default 8, at most
-        ``cpu_count - 1`` (more workers than spare cores only add IPC)."""
+        ``cpu_count - 1`` (more workers than spare cores only add IPC)
+        shared by the ranks of this host."""
         data_cfg = self.config['dataset']
         wanted = int(data_cfg.get('num_workder',
                                   data_cfg.get('num_worker', 8)))
-        spare = max((os.cpu_count() or 1) - 1, 0)
+        mesh = self.get_mesh()
+        ranks = mesh.local_size if mesh is not None else 1
+        spare = max((os.cpu_count() or 1) - 1, 0) // ranks
         if wanted > spare:
-            logging.info('num_workder %d clamped to %d (cpu_count - 1)',
-                         wanted, spare)
+            logging.info('num_workder %d clamped to %d ((cpu_count - 1) // '
+                         '%d ranks)', wanted, spare, ranks)
         return min(wanted, spare)
 
     def cache_bytes(self, stage: str, workers: int = 1) -> int:
@@ -118,7 +172,29 @@ class NetRunAgent(ABC):
                             transform=self.build_transform(real_stage),
                             cache_bytes=cache_bytes,
                             transform_cache=data_cfg.get('transform_cache',
-                                                         True))
+                                                         True),
+                            host_shard=self.host_shard(real_stage))
+
+    def host_shard(self, stage: str):
+        """``(host, hosts)`` for a train stage of several hosts: each host
+        trains on its manifest share; valid and test stages read every
+        row on every rank. None otherwise."""
+        host, hosts = multihost.host_layout()
+        if stage == 'train' and hosts > 1 and self.get_mesh() is not None:
+            return host, hosts
+        return None
+
+    def host_batch_size(self, key: str = 'train_batch_size') -> int:
+        """``[dataset] key`` (the global batch) over the hosts of a
+        sharded train stage: the batch of each host's loaders."""
+        bs = self.config['dataset'][key]
+        if self.host_shard('train') is None:
+            return bs
+        hosts = multihost.host_layout()[1]
+        if bs % hosts:
+            raise ValueError('{0} {1} must divide across {2} hosts'.format(
+                key, bs, hosts))
+        return bs // hosts
 
     def create_dataset(self):
         data_cfg = self.config['dataset']
@@ -127,7 +203,7 @@ class NetRunAgent(ABC):
             for d in range(1, self.num_domains + 1):
                 self.train_loaders.append(DataLoader(
                     self.stage_dataset('{0}_train'.format(d), workers),
-                    batch_size=data_cfg['train_batch_size'], shuffle=True,
+                    batch_size=self.host_batch_size(), shuffle=True,
                     num_workers=workers, seed=self.random_seed + d))
                 self.valid_loaders.append(DataLoader(
                     self.stage_dataset('{0}_valid'.format(d)),

@@ -70,14 +70,26 @@ undo the test transforms and save label NIfTIs with the source geometry.
 
 Dropout randomness at test time: volume i of the stage draws its pass seeds
 from ``np.random.SeedSequence([random_seed, i])`` and gets one
-``torch.Generator`` on the device per pass. The masks therefore differ from
-the JAX package's (threefry keys split from ``random_seed``), and on the
-card from the CPU's: the two agree in distribution, not in value.
+``torch.Generator`` on the device per pass (``engine/infer.py``
+``PassFold``). The masks therefore differ from the JAX package's (threefry
+keys split from ``random_seed``), and on the card from the CPU's: the two
+agree in distribution, not in value.
+
+Data parallelism (``get_mesh()``, the JAX package's
+``agents/agent_seg.py:500-519,695,812,1053,1125``): ``train_valid``
+broadcasts rank 0's network (and discriminator), wraps the steps with
+``parallel.make_sharded_train_step`` and hands each rank its rows of the
+host batch (``train_batch_size`` is the global batch and must divide over
+the ranks); validation and the test stage run the sharded Inferer, so
+every rank computes the same dice, picks the same best iteration and
+reaches the same labels; only global rank 0 writes checkpoints, pointers,
+scalars, predictions and the FPL list, and barriers separate its writes
+from the other ranks' reads (after the train stage's pointers, before the
+test stage resolves its checkpoint).
 """
 from __future__ import annotations
 
 import copy
-import functools
 import logging
 import math
 import os
@@ -90,7 +102,7 @@ import torch
 
 from fpl_plus_torch.agents.agent_abstract import NetRunAgent
 from fpl_plus_torch.engine import ckpt as ckpt_lib
-from fpl_plus_torch.engine.infer import Inferer
+from fpl_plus_torch.engine.infer import Inferer, PassFold
 from fpl_plus_torch.engine.optim import (PlateauScheduler, create_lr_schedule,
                                          create_optimizer, set_scheduled_lr)
 from fpl_plus_torch.engine.train import (AlternatingTrainStep,
@@ -102,6 +114,9 @@ from fpl_plus_torch.io.loader import prefetch_iter, repeat_loader
 from fpl_plus_torch.losses import create_loss_calculator
 from fpl_plus_torch.models.registry import create_network, param_count
 from fpl_plus_torch.models.unet2d5_dsbn import Dis
+from fpl_plus_torch.parallel import (make_sharded_train_step, replicate,
+                                     shard_batch)
+from fpl_plus_torch.parallel.multihost import is_primary_host
 from fpl_plus_torch.utils.image_process import convert_label
 from fpl_plus_torch.utils.post_process import PostProcessDict
 from fpl_plus_torch.utils.precision import cast_infer_module, resolve_dtype
@@ -247,6 +262,8 @@ def init_dis(dis: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 
 class SegmentationAgent(NetRunAgent):
+    data_parallel = True
+
     def __init__(self, config: dict, stage: str, device: torch.device):
         super().__init__(config, stage, device)
         self.module = None
@@ -418,6 +435,13 @@ class SegmentationAgent(NetRunAgent):
         module = self.module.to(self.device)
         if cfg_t.get('dis', False):
             self._create_dis()
+        mesh = self.get_mesh()
+        if mesh is not None:
+            bs = self.config['dataset']['train_batch_size']
+            if bs % mesh.size:
+                raise ValueError(
+                    'train_batch_size {0} must be divisible by the '
+                    '{1}-device mesh'.format(bs, mesh.size))
         sched_params = dict(cfg_t)
         sched_params['last_iter'] = -1
         # the dsbn reference zeroes the restored valid_pred on resume
@@ -441,6 +465,17 @@ class SegmentationAgent(NetRunAgent):
         step = self._build_step(optimizer, schedule)
         dis_step = (DiscriminatorStep(module, self.dis, self.dis_optimizer)
                     if self.dis is not None else None)
+        if mesh is not None:
+            # rank 0's state everywhere; a resume loaded the same file on
+            # every rank, so the optimizer states agree already
+            for net in (module, self.dis):
+                if net is not None:
+                    replicate(net, mesh)
+            step = make_sharded_train_step(step, mesh)
+            if dis_step is not None:
+                dis_step = make_sharded_train_step(dis_step, mesh)
+            logging.info('data-parallel training over %d ranks (rank %d)',
+                         mesh.size, mesh.rank)
         plateau = PlateauScheduler(sched_params)
         class_num = self.config['network']['class_num']
         writer = ScalarWriter(ckpt_dir)
@@ -459,6 +494,8 @@ class SegmentationAgent(NetRunAgent):
                     tw = time.time()
                     host = next(batches)
                     wait += time.time() - tw
+                    if mesh is not None:
+                        host = shard_batch(host, mesh)
                     dev = _to_device(host, self.device)
                     hyper = self.training_hyper(it)
                     metrics = step(dev, self._step_generators(it), **hyper)
@@ -531,6 +568,9 @@ class SegmentationAgent(NetRunAgent):
                 logging.exception('checkpoint writer close failed during '
                                   'unwind')
         ckpt_lib.write_best_pointer(ckpt_dir, prefix, max_val_it)
+        # the test stage's readers resolve pointers only after rank 0
+        # wrote them
+        self.barrier('train-ckpt-written')
         logging.info('The best performing iter is %d, valid dice %s',
                      max_val_it, max_val_dice)
 
@@ -570,7 +610,8 @@ class SegmentationAgent(NetRunAgent):
         section 3)."""
         if self.inferer is None:
             self.inferer = Inferer(dict(self.config['testing'],
-                                        output_mode='logits'), self.device)
+                                        output_mode='logits'), self.device,
+                                   mesh=self.get_mesh())
             self._valid_loss = create_loss_calculator(self.config)
         module = self.module
         per_domain = []
@@ -637,13 +678,13 @@ class SegmentationAgent(NetRunAgent):
             up = [a + int(b) for a, b in zip(up, mu)]
         return lo, up
 
-    def _generators(self, volume_index: int, n: int) -> List[torch.Generator]:
-        """``n`` dropout generators on the device for the stage's volume
-        ``volume_index``, seeded from ``random_seed`` and that index."""
-        seeds = np.random.SeedSequence(
-            [int(self.random_seed), volume_index]).generate_state(n)
-        return [torch.Generator(self.device).manual_seed(int(s))
-                for s in seeds]
+    def _pass_fold(self, predictor, volume_index: int, n: int) -> PassFold:
+        """``n`` dropout passes of ``predictor`` on the device for the
+        stage's volume ``volume_index``, seeded from ``random_seed`` and
+        that index."""
+        return PassFold(predictor, np.random.SeedSequence(
+            [int(self.random_seed), volume_index]).generate_state(n),
+            self.device)
 
     def _host_inverse(self, data: Dict) -> Dict:
         """Undo the test chain on ``data['predict']`` (logits ``[N, K,
@@ -668,8 +709,11 @@ class SegmentationAgent(NetRunAgent):
         """The label-head Inferer of the device-label path and the logits
         Inferer of the host path."""
         cfg_test = self.config['testing']
-        return (Inferer(dict(cfg_test, output_mode='label'), self.device),
-                Inferer(dict(cfg_test, output_mode='logits'), self.device))
+        mesh = self.get_mesh()
+        return (Inferer(dict(cfg_test, output_mode='label'), self.device,
+                        mesh=mesh),
+                Inferer(dict(cfg_test, output_mode='logits'), self.device,
+                        mesh=mesh))
 
     # -- inference ------------------------------------------------------------
     def infer(self):
@@ -679,6 +723,7 @@ class SegmentationAgent(NetRunAgent):
         tt_dropout = cfg_test.get('test_time_dropout', False) or fpl
         device_label = cfg_test.get('infer_device_label', True)
 
+        self.barrier('pre-ckpt-resolve')   # a prior stage's writes settle
         ckpt_name = ckpt_lib.get_checkpoint_name(self.config)
         postpro_name = cfg_test.get('post_process', None)
         if self.postprocessor is None and postpro_name is not None:
@@ -719,9 +764,9 @@ class SegmentationAgent(NetRunAgent):
                 t0 = time.time()
                 pred = predictor
                 if tt_dropout:
-                    pred = functools.partial(
-                        predictor, dropout_generators=self._generators(
-                            volume_index, FPL_PASSES if fpl else 1))
+                    fold = self._pass_fold(predictor, volume_index,
+                                           FPL_PASSES if fpl else 1)
+                    pred = fold if fpl else fold.take([0])
                 if fpl:
                     if margins is not None:
                         vars_, boundary = label_inf.run_fpl_uncertainty(
@@ -749,7 +794,7 @@ class SegmentationAgent(NetRunAgent):
                     self.save_outputs(self._host_inverse(data))
                 infer_times.append(time.time() - t0)
                 volume_index += 1
-        if fpl:
+        if fpl and is_primary_host():   # computed everywhere, written once
             pairs = sorted(zip(uncertainty.values(), uncertainty.keys()))
             np.save(cfg_test['fpl_uncertainty_sorted'],
                     np.asarray(pairs, dtype=object))
@@ -786,7 +831,10 @@ class SegmentationAgent(NetRunAgent):
         """Labels (``predict_label``, or softmax then argmax of the logits
         ``predict``) -> label convert -> post-process -> save NIfTI with
         metadata from the source image (reference :1022-1083), into
-        ``output_dir/(ckpt_dir + '_' + test_csv_stem)``."""
+        ``output_dir/(ckpt_dir + '_' + test_csv_stem)``. Every rank
+        computes the labels; global rank 0 writes them."""
+        if not is_primary_host():
+            return
         cfg_test = self.config['testing']
         output_dir = cfg_test['output_dir']
         ignore_dir = cfg_test.get('filename_ignore_dir', True)

@@ -34,7 +34,6 @@ package's threefry draws.
 from __future__ import annotations
 
 import csv
-import functools
 import logging
 import os
 import time
@@ -51,6 +50,7 @@ from fpl_plus_torch.io.dataset import NiftyDataset
 from fpl_plus_torch.io.image_io import (load_image_as_nd_array,
                                         save_nd_array_as_image)
 from fpl_plus_torch.io.loader import DataLoader, prefetch_iter
+from fpl_plus_torch.parallel.multihost import is_primary_host
 
 
 # -- confident learning (host numpy) ----------------------------------------
@@ -195,7 +195,10 @@ class NLLCLSLSR(SegmentationAgent):
     NLLCLSLSR, nll_clslsr.py:48-147). ``[dataset] train_csv`` is the
     manifest audited, ``valid_transform`` the inference chain; ``[testing]``
     names the checkpoint (ckpt_mode 0-2), the window and TTA,
-    ``test_time_dropout`` and ``cl_type`` (default ``both``)."""
+    ``test_time_dropout`` and ``cl_type`` (default ``both``). It has no
+    sharded path yet (``NetRunAgent.data_parallel``)."""
+
+    data_parallel = False
 
     def __init__(self, config: dict, device):
         super().__init__(config, 'test', device)
@@ -265,9 +268,7 @@ class NLLCLSLSR(SegmentationAgent):
             images = np.asarray(data['image'], np.float32)
             pred = predictor
             if tt_dropout:
-                pred = functools.partial(
-                    predictor,
-                    dropout_generators=self._generators(vol_idx, 1))
+                pred = self._pass_fold(predictor, vol_idx, 1).take([0])
             data['predict'] = inferer.run(pred, images)
             pred = np.asarray(self._host_inverse(data)['predict'])
             k = pred.shape[1]
@@ -298,8 +299,8 @@ class NLLCLSLSR(SegmentationAgent):
         logging.info('confident learning flagged %d / %d voxels (%.2f%%)',
                      int(conf.sum()), conf.size,
                      100.0 * conf.sum() / max(conf.size, 1))
-        # one host writes (the JAX package's primary host; the port runs on
-        # one host, so this process is it)
+        if not is_primary_host():   # computed everywhere, written once
+            return
         save_dir = os.path.join(root_dir, 'slsr_conf')
         os.makedirs(save_dir, exist_ok=True)
         offset = 0
@@ -322,9 +323,11 @@ def run_get_confidence_map(config: dict, device) -> str:
     columns and order. Returns the manifest path."""
     NLLCLSLSR(config, device).run()
     csv_file = config['dataset']['train_csv']
+    train_cl_csv = csv_file.replace('.csv', '_clslsr.csv')
+    if not is_primary_host():
+        return train_cl_csv
     with open(csv_file, newline='') as f:
         rows = list(csv.DictReader(f))
-    train_cl_csv = csv_file.replace('.csv', '_clslsr.csv')
     with open(train_cl_csv, 'w', newline='') as f:
         writer = csv.writer(f, lineterminator='\n')
         writer.writerow(['image', 'pixel_weight', 'label'])

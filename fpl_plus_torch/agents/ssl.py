@@ -355,6 +355,8 @@ class ParadigmAgent(SegmentationAgent):
     paradigm_section = ''
     step_class = None
     uses_teacher = False
+    # the paradigm steps have no data-parallel path yet (ROADMAP.md)
+    data_parallel = False
 
     def __init__(self, config: dict, stage: str, device):
         super().__init__(config, stage, device)
@@ -461,9 +463,10 @@ class SSLSegAgent(ParadigmAgent):
             modal_num=data_cfg.get('modal_num', 1), with_label=False,
             transform=transform,
             cache_bytes=self.cache_bytes('train', workers),
-            transform_cache=data_cfg.get('transform_cache', True))
+            transform_cache=data_cfg.get('transform_cache', True),
+            host_shard=self.host_shard('train'))
         self.train_loader_unlab = DataLoader(
-            dataset, batch_size=data_cfg['train_batch_size_unlab'],
+            dataset, batch_size=self.host_batch_size('train_batch_size_unlab'),
             shuffle=True, num_workers=workers, seed=self.random_seed + 100)
 
     def loaders(self):

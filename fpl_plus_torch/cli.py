@@ -33,6 +33,20 @@ package wrote into a port checkpoint with its latest pointer
 (``utils/convert.py``; no optimizer state, so a resume from it starts a
 fresh optimizer); the JAX package's ``fpl_convert`` goes the other way.
 
+Scale-out (the JAX package's ``cli.py:115-116,139-150``): a stage whose
+mesh (``[training]`` / ``[testing]`` ``mesh_devices``, a multi-entry
+``gpus`` list, ``[training] multihost`` or the ``FPLX_*`` triple;
+``parallel/mesh.py`` ``mesh_size_from_config``) needs more than one rank
+on this host makes the CLI start the host's ranks (spawned processes,
+rank l on ``cuda:l`` or, under ``--device cpu``, on the CPU with gloo)
+and wait for them; a rank that fails fails the run. Each rank joins the
+group before it picks its card, runs the stage and the auto test stage
+(on every rank when the test stage's mesh is the run's, on rank 0 alone
+when it asks for one device), rank 0 alone writes the log file and runs
+``eva_main``, and the group is closed at exit. Only the segmentation
+agent trains and infers over a mesh; the other agents raise
+``NotImplementedError`` before any rank starts.
+
 ``main_eval_seg`` (``python -m fpl_plus_torch.metrics cfg``) runs the
 evaluation reports alone (the reference's ``pymic_eval_seg``) and
 ``main_eval_cls`` (``python -m fpl_plus_torch.metrics.cls_metrics cfg``)
@@ -45,6 +59,9 @@ import logging
 import os
 import sys
 
+import torch
+
+from fpl_plus_torch.agents.agent_abstract import NOT_DATA_PARALLEL
 from fpl_plus_torch.agents.agent_cls import ClassificationAgent
 from fpl_plus_torch.agents.agent_seg import SegmentationAgent
 from fpl_plus_torch.agents.nll import NLLMethodDict
@@ -56,24 +73,30 @@ from fpl_plus_torch.config.parser import (logging_config, parse_config,
 from fpl_plus_torch.device import resolve_device
 from fpl_plus_torch.metrics.cls_metrics import main_eval_cls  # noqa: F401
 from fpl_plus_torch.metrics.evaluate import eva_main
+from fpl_plus_torch.parallel import multihost
+from fpl_plus_torch.parallel.mesh import mesh_size_from_config
 from fpl_plus_torch.utils.convert import convert_jax_checkpoint
 from fpl_plus_torch.utils.precision import apply_matmul_precision
 
 
 def _setup_logging(log_path: str) -> None:
-    os.makedirs(os.path.dirname(log_path) or '.', exist_ok=True)
+    """File + stdout logging on the primary rank; the other ranks of a
+    group log warnings to stderr only (one log file per run)."""
     root = logging.getLogger()
-    root.setLevel(logging.INFO)
     for h in list(root.handlers):
         root.removeHandler(h)
         h.close()
+    if not multihost.is_primary_host():
+        root.setLevel(logging.WARNING)
+        root.addHandler(logging.StreamHandler(sys.stderr))
+        return
+    os.makedirs(os.path.dirname(log_path) or '.', exist_ok=True)
+    root.setLevel(logging.INFO)
     root.addHandler(logging.FileHandler(log_path, mode='a'))
     root.addHandler(logging.StreamHandler(sys.stdout))
 
 
-def _run(argv, prog: str, agent_of, device=None) -> int:
-    """Parse ``stage cfg [--device]``, run the stage with the agent class
-    ``agent_of(config)`` gives, then the auto test stage and the reports."""
+def _parse(argv, prog: str):
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument('stage', choices=('train', 'test', 'inference'))
@@ -84,24 +107,105 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
     if not os.path.isfile(args.cfg):
         raise ValueError('The config file does not exist: {0}'.format(
             args.cfg))
-    dev = resolve_device(device if device is not None else args.device)
+    return args
+
+
+def local_ranks(config: dict, stage: str, agent_class,
+                device_type: str) -> int:
+    """The ranks this host starts for ``stage`` (1: this process alone):
+    the stage's mesh over the hosts. Raises for an agent without a
+    data-parallel step under a mesh, and when the auto test stage's mesh
+    is neither one device nor the train stage's."""
+    n = mesh_size_from_config(config, stage, device_type)
+    _, hosts = multihost.host_layout()
+    if n <= 1 and not multihost.multihost_requested(config):
+        return 1
+    if not agent_class.data_parallel:
+        raise NotImplementedError(NOT_DATA_PARALLEL.format(
+            agent_class.__name__))
+    if n % hosts:
+        raise ValueError('a mesh of {0} does not split over {1} hosts'
+                         .format(n, hosts))
+    if stage == 'train' and config['dataset'].get('task_type',
+                                                  'seg') == 'seg':
+        n_test = mesh_size_from_config(config, 'test', device_type)
+        if n_test not in (1, n):
+            raise ValueError(
+                'the auto test stage asks for {0} ranks and the train stage '
+                'for {1}: a stage runs on 1 rank or on all of them'.format(
+                    n_test, n))
+    return n // hosts
+
+
+def _run(argv, prog: str, agent_of, device=None) -> int:
+    """Parse ``stage cfg [--device]``, run the stage with the agent class
+    ``agent_of(config)`` gives, then the auto test stage and the reports;
+    over the host's ranks when the stage's mesh needs several."""
+    args = _parse(argv, prog)
+    dev_name = device if device is not None else args.device
+    device_type = torch.device(dev_name or 'cuda').type
     config = synchronize_config(parse_config(args.cfg))
-    agent_class = agent_of(config)
+    ranks = local_ranks(config, args.stage, agent_of(config), device_type)
+    coordinator = os.environ.get(multihost.ENV_COORDINATOR)
+    if ranks > 1:
+        coordinator = coordinator or 'localhost:{0}'.format(
+            multihost.free_local_port())
+        multihost.launch_local_ranks(
+            run_rank, (args, agent_of, dev_name, coordinator, ranks), ranks)
+        return 0
+    return run_rank(0, args, agent_of, dev_name, coordinator, 1)
+
+
+def run_rank(local_rank: int, args, agent_of, dev_name, coordinator,
+             local_size: int) -> int:
+    """One rank of the run (the whole run when it is alone): join the
+    group, pick the card, run the stages, close the group."""
+    config = synchronize_config(parse_config(args.cfg))
+    device_type = torch.device(dev_name or 'cuda').type
+    grouped = multihost.maybe_initialize_distributed(
+        config, device_type, local_rank, local_size, coordinator)
+    try:
+        dev = resolve_device('cuda:{0}'.format(local_rank)
+                             if grouped and device_type == 'cuda'
+                             else dev_name)
+        _stages(args, config, agent_of(config), dev)
+    except BaseException:
+        if grouped:
+            multihost.finalize_distributed(ok=False)
+        raise
+    if grouped:
+        multihost.finalize_distributed()
+    return 0
+
+
+def _stage(agent_class, config: dict, stage: str, dev) -> None:
+    """Run one stage: on every rank, or on rank 0 alone when a multi-rank
+    run's stage asks for one device."""
+    if (multihost.process_info()[1] > 1
+            and mesh_size_from_config(config, stage, dev.type) == 1):
+        if multihost.is_primary_host():
+            agent_class(config, stage, dev).run()
+        multihost.barrier('{0}-on-rank-0'.format(stage))
+        return
+    agent_class(config, stage, dev).run()
+
+
+def _stages(args, config: dict, agent_class, dev) -> None:
     apply_matmul_precision(config, args.stage)
     log_dir = config['training']['ckpt_save_dir']
     os.makedirs(log_dir, exist_ok=True)
     _setup_logging('{0}/log_{1}.txt'.format(log_dir, args.stage))
     logging_config(config)
 
-    agent_class(config, args.stage, dev).run()
+    _stage(agent_class, config, args.stage, dev)
     if config['dataset'].get('task_type', 'seg') != 'seg':
-        return 0
+        return
     if args.stage == 'train':
         # the auto test stage (reference net_run_dsbn/net_run.py:37-40)
-        agent_class(config, 'test', dev).run()
-    if args.stage != 'test' and 'evaluation' in config:
+        _stage(agent_class, config, 'test', dev)
+    if (args.stage != 'test' and 'evaluation' in config
+            and multihost.is_primary_host()):
         eva_main(config)
-    return 0
 
 
 def _task_agent(config):

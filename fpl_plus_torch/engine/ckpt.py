@@ -22,6 +22,12 @@ reference's ``torch.save`` is synchronous and not atomic):
   pickles and writes. ``flush()`` drains the queue and re-raises the first
   worker error; the agent flushes before anything reads the files.
 
+Data parallelism: every rank holds the same state, and only global rank
+0 writes (``parallel/multihost.py`` ``is_primary_host``): artifacts,
+pointers and the writer's snapshots are skipped on the other ranks. A
+barrier comes before any rank reads what rank 0 wrote, and every rank
+then loads the same file.
+
 ``average_checkpoints`` is the uniform mean of checkpoints' state dicts
 (the JAX package's ``engine/ckpt.py:221-239``), which
 ``utils/model_operate.py`` writes out.
@@ -35,6 +41,8 @@ import threading
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+
+from fpl_plus_torch.parallel.multihost import is_primary_host
 
 
 def ckpt_prefix_of(config: dict) -> str:
@@ -134,6 +142,8 @@ def _atomic_write(path: str, data: bytes) -> None:
 
 def _write_pointer(ckpt_dir: str, prefix: str, kind: str,
                    iteration: int) -> None:
+    if not is_primary_host():
+        return
     _atomic_write('{0}/{1}_{2}.txt'.format(ckpt_dir, prefix, kind),
                   str(iteration).encode())
 
@@ -143,8 +153,10 @@ def save_checkpoint(ckpt_dir: str, prefix: str, iteration: int,
                     update_latest: bool = True) -> str:
     """Write ``{prefix}_{iteration}.pt`` from ``state`` (its
     ``model_state_dict`` and ``optimizer_state_dict``), then, with
-    ``update_latest``, the latest pointer."""
+    ``update_latest``, the latest pointer (on the primary rank only)."""
     name = checkpoint_path(ckpt_dir, prefix, iteration)
+    if not is_primary_host():
+        return name
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {'iteration': iteration, 'valid_pred': float(valid_pred)}
     payload.update(state)
@@ -204,8 +216,11 @@ class CheckpointWriter:
     def submit(self, ckpt_dir: str, prefix: str, iteration: int,
                state: Dict[str, Any], valid_pred: float,
                update_latest: bool = True) -> str:
-        """Snapshot ``state`` to the CPU now and queue its write."""
+        """Snapshot ``state`` to the CPU now and queue its write (on the
+        primary rank only)."""
         self._raise_error()
+        if not is_primary_host():
+            return checkpoint_path(ckpt_dir, prefix, iteration)
         snap = snapshot(state)
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(target=self._loop, daemon=True)

@@ -42,16 +42,36 @@ plain Python around device work.
   per head; the FPL reduction reads the main head.
 
 The JAX package's XLA compile devices (shape bucketing, unrolled vs scanned
-accumulation, window placement, the device mesh) change no value --
+accumulation, window placement) change no value --
 bucketing is exact by construction, the rest are schedules -- so their
 ``[testing]`` keys are accepted and ignored; the last chunk of the grid may
 simply be shorter than ``patch_chunk``.
+
+Sharded over a mesh (``Inferer(..., mesh=)``, ``parallel/mesh.py``), as
+the JAX package's mesh Inferer (``engine/infer.py:672-766`` and
+``:1164-1300`` there); every rank gets the same result:
+
+* ``run`` / ``run_logits``: the window grid splits into contiguous shares,
+  one per rank (the first ``len % size`` ranks take one window more; the
+  JAX package pads the grid with weight-0 windows instead); each rank
+  accumulates its windows and one all-reduce per head sums the
+  accumulators. The closed-form counter covers the whole grid and is not
+  summed;
+* ``run_batch``: the volume axis splits, padded to a multiple of the
+  ranks by repeating the last volume; each rank runs its volumes through
+  one batched sliding window and the per-volume logits are gathered, pads
+  dropped;
+* ``run_passes`` / ``run_fpl_uncertainty``: the pass axis splits the same
+  way, padded by repeating the last pass's seed: the fold must be a
+  ``PassFold``, which makes each rank's passes from their seeds. The
+  per-pass logits are gathered before the reduction.
 
 Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
 W = -1.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -195,6 +215,36 @@ def fpl_uncertainty_reduce(out: torch.Tensor, lo: Sequence[int],
     return float(vars_sum), int(boundary)
 
 
+class PassFold:
+    """``len(seeds)`` stochastic passes of ``predictor(x,
+    dropout_generators=...)`` folded into one batch: pass i draws its masks
+    from a ``torch.Generator`` on ``device`` seeded with ``seeds[i]``.
+    ``take(passes)`` is the group predictor of those passes, with fresh
+    generators, so a pass draws the same masks in any fold and on any
+    rank."""
+
+    def __init__(self, predictor: Callable, seeds: Sequence[int], device):
+        self.predictor = predictor
+        self.seeds = [int(s) for s in seeds]
+        self.device = torch.device(device)
+
+    def __len__(self):
+        return len(self.seeds)
+
+    def take(self, passes: Sequence[int]) -> Callable:
+        gens = [torch.Generator(self.device).manual_seed(self.seeds[i])
+                for i in passes]
+        return functools.partial(self.predictor, dropout_generators=gens)
+
+
+def _padded_share(n: int, mesh) -> List[int]:
+    """This rank's items of ``n`` padded to a multiple of the ranks by
+    repeating the last item: ``ceil(n / size)`` indices."""
+    per = -(-n // mesh.size)
+    return [min(i, n - 1) for i in range(mesh.rank * per,
+                                         (mesh.rank + 1) * per)]
+
+
 class Inferer:
     """``Inferer(testing_cfg, device).run(predictor, image)``.
 
@@ -204,12 +254,15 @@ class Inferer:
     ``[1, K, *img]`` f32 for 'logits'/'prob' and ``[1, *img]`` uint8 for
     'label'/'packed_label'; ``run_batch`` and ``run_passes`` return the
     same with a leading ``[N]``. A predictor that returns a list of heads
-    gets a list of such results, one per head.
+    gets a list of such results, one per head. ``mesh``: shard over its
+    ranks (module docstring).
     """
 
-    def __init__(self, config: dict, device, patch_chunk: int = 2):
+    def __init__(self, config: dict, device, patch_chunk: int = 2,
+                 mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
         # windows per forward ([testing] patch_chunk); the forward batch is
         # N x 4 x patch_chunk with TTA over N volumes or passes
         self.patch_chunk = int(config.get('patch_chunk', patch_chunk))
@@ -269,16 +322,26 @@ class Inferer:
         heads = list(out) if isinstance(out, (tuple, list)) else [out]
         return [h.float() for h in heads]
 
-    def _sliding_window(self, predictor, variants, window, stride):
+    def _sliding_window(self, predictor, variants, window, stride,
+                        shard: bool = True):
         """Overlap-averaged ``[N*V, K, *img_i]`` f32 per head over the
-        clamped grid."""
+        clamped grid; with ``shard`` and a mesh, this rank's share of the
+        windows, summed over the ranks."""
         img_shape = tuple(variants.shape[2:])
         starts = window_grid(img_shape, window, stride)
-        chunk = min(self.patch_chunk, len(starts))
+        shard = shard and self.mesh is not None
+        mine, add = starts, True
+        if shard:
+            lo, hi = self.mesh.share(len(starts))
+            # a rank without a window still forwards one (added nowhere)
+            # to shape its accumulators for the all-reduce
+            mine, add = (starts[lo:hi], True) if hi > lo else (starts[:1],
+                                                               False)
+        chunk = min(self.patch_chunk, len(mine))
         v = variants.shape[0]
         outs = wins = None
-        for i in range(0, len(starts), chunk):
-            sts = starts[i:i + chunk].tolist()
+        for i in range(0, len(mine), chunk):
+            sts = mine[i:i + chunk].tolist()
             patches = torch.stack([variants[_box(st, window)] for st in sts],
                                   1)
             preds = self._forward(predictor, patches.flatten(0, 1))
@@ -291,9 +354,12 @@ class Inferer:
                     for p, w in zip(preds, wins)]
             for out, pred, win in zip(outs, preds, wins):
                 pred = pred.reshape((v, len(sts)) + pred.shape[1:])
-                for j, st in enumerate(sts):
+                for j, st in enumerate(sts if add else ()):
                     s0 = [s * w // n for s, w, n in zip(st, win, window)]
                     out[_box(s0, win)] += pred[:, j]
+        if shard:
+            for out in outs:
+                self.mesh.all_reduce(out)
         dim_starts = dim_start_lists(img_shape, window, stride)
         cnts = [_coverage(dim_starts, window, win, o.shape[2:])
                 for win, o in zip(wins, outs)]
@@ -304,10 +370,12 @@ class Inferer:
                                     1e-6) for o, c in zip(outs, cnts)]
 
     def _dev(self, predictor: Callable, images: np.ndarray,
-             copies: int = 1) -> List[torch.Tensor]:
+             copies: int = 1, shard_windows: bool = True
+             ) -> List[torch.Tensor]:
         """Device logits ``[N, K, *img_i]`` f32 per head of ``images [N, C,
         *img]`` (``copies`` > 1: N = ``copies`` passes over one volume), TTA
-        and overlap averaging done, before the output head."""
+        and overlap averaging done, before the output head; the windows
+        sharded over the mesh unless ``shard_windows`` is False."""
         tta = self._tta()
         img_shape = tuple(images.shape[2:])
         _, window, stride = self._resolve_sw(img_shape)
@@ -330,7 +398,7 @@ class Inferer:
         variants = _make_variants(vols, tta)
         if windowed:
             return [_unflip_mean(o, n, tta) for o in self._sliding_window(
-                predictor, variants, window, stride)]
+                predictor, variants, window, stride, shard_windows)]
         padded = variants.shape[2:]
         return [_unflip_mean(o, n, tta)[(slice(None), slice(None)) + tuple(
             slice(0, int(s * (o.shape[2 + d] / padded[d])))
@@ -371,7 +439,7 @@ class Inferer:
         Voxel-identical to N ``run`` calls up to the convolution library's
         choice of algorithm at the larger batch. Runs volume by volume
         when N is 1, the sliding window is off, or the volume fits in one
-        window."""
+        window. On a mesh each rank runs its share of the volumes."""
         images = np.asarray(images)
         n = images.shape[0]
         if n == 0:
@@ -380,14 +448,32 @@ class Inferer:
             per = [self._run_dev(predictor, images[i:i + 1])
                    for i in range(n)]
             return self._host([torch.cat(h, 0) for h in zip(*per)])
-        return self._host(self._dev(predictor, images))
+        if self.mesh is None:
+            return self._host(self._dev(predictor, images))
+        outs = self._dev(predictor, images[_padded_share(n, self.mesh)],
+                         shard_windows=False)
+        return self._host([self.mesh.gather_rows(o)[:n] for o in outs])
 
-    def _passes_dev(self, group_predictor: Callable, image,
+    def _passes_dev(self, group_predictor, image,
                     n_passes: int) -> List[torch.Tensor]:
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('run_passes folds passes over one volume')
-        return self._dev(group_predictor, image, copies=n_passes)
+        fold = isinstance(group_predictor, PassFold)
+        if fold and len(group_predictor) != n_passes:
+            raise ValueError('a PassFold of {0} passes run as {1}'.format(
+                len(group_predictor), n_passes))
+        if self.mesh is None:
+            pred = (group_predictor.take(range(n_passes)) if fold
+                    else group_predictor)
+            return self._dev(pred, image, copies=n_passes)
+        if not fold:
+            raise TypeError('passes sharded over a mesh need a PassFold: '
+                            'each rank makes its passes from their seeds')
+        mine = _padded_share(n_passes, self.mesh)
+        outs = self._dev(group_predictor.take(mine), image,
+                         copies=len(mine), shard_windows=False)
+        return [self.mesh.gather_rows(o)[:n_passes] for o in outs]
 
     @torch.inference_mode()
     def run_passes(self, group_predictor: Callable, image,
@@ -395,7 +481,8 @@ class Inferer:
         """Fold ``n_passes`` stochastic passes over one volume into one
         batched inference. ``group_predictor`` treats its patch batch as
         ``n_passes`` contiguous groups, group i under pass i's randomness
-        (the network given ``n_passes`` ``dropout_generators``). Row i of
+        (the network given ``n_passes`` ``dropout_generators``), or is a
+        ``PassFold`` of ``n_passes`` seeds (required on a mesh). Row i of
         the result is pass i's full inference (TTA, sliding window, overlap
         averaging): the same as ``run`` with pass i's predictor."""
         return self._host(self._passes_dev(group_predictor, image, n_passes))

@@ -53,6 +53,18 @@ list: the loss gets the whole list, and the train dice, the entropy term,
 the consistency term and the discriminator the primary head ``out[0]``, as
 in the JAX package (``engine/train.py:95-106`` there).
 
+Data parallelism (``parallel/mesh.py`` ``make_sharded_train_step``): a
+step whose ``mesh`` is set holds this rank's rows of each batch. Every
+loss, with its dice, entropy and consistency terms, is evaluated on the
+global batch: the prediction is gathered (differentiably; the backward
+keeps this rank's rows of a gradient that every rank computes alike) and
+so are ``label_prob``, ``pixel_weight`` and ``image_weight``; an eval-mode
+forward's output is gathered too. The 13 losses run unchanged. Before each
+update the parameter gradients are summed over the ranks, which gives the
+global batch's gradient, so every rank takes the same update and reports
+the same metrics. The discriminator's LSGAN loss is a mean of per-sample
+terms: each rank takes its rows' mean and the gradients are averaged.
+
 Metrics stay on the device; the caller converts them once per block.
 """
 from __future__ import annotations
@@ -66,9 +78,22 @@ from torch.func import functional_call
 
 from fpl_plus_torch.engine.optim import count_update, set_scheduled_lr
 from fpl_plus_torch.losses.util import get_classwise_dice, reshape_to_2d
+from fpl_plus_torch.parallel.mesh import gather_rows
 
 Batch = Dict[str, torch.Tensor]
 Generators = Optional[List[torch.Generator]]
+# the batch entries a loss reads beside the prediction: gathered to the
+# global batch under a mesh
+TARGETS = ('label_prob', 'pixel_weight', 'image_weight')
+
+
+def sum_gradients(params, mesh) -> None:
+    """Sum ``.grad`` of every parameter over the ranks of ``mesh`` (one
+    all-reduce of their concatenation)."""
+    grads = [p.grad for p in params]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def train_dice(logits: torch.Tensor, label_prob: torch.Tensor
@@ -109,6 +134,27 @@ class _Step:
         self.schedule = schedule
         self.fpl_uda = fpl_uda
         self.compute_dtype = compute_dtype
+        self.mesh = None    # set by parallel.mesh.make_sharded_train_step
+
+    def _global_targets(self, batch):
+        """``batch`` with its loss targets gathered over the mesh (this
+        rank's ``image`` / ``image1`` stay); nested sequences of batches
+        (microbatches) map; the batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._global_targets(b) for b in batch)
+        return {k: self.mesh.gather_rows(v) if k in TARGETS else v
+                for k, v in batch.items()}
+
+    def _gather(self, out):
+        """The gathered global-batch prediction (each head); itself
+        without a mesh."""
+        if self.mesh is None:
+            return out
+        if isinstance(out, (list, tuple)):
+            return [gather_rows(o, self.mesh) for o in out]
+        return gather_rows(out, self.mesh)
 
     def _params(self):
         """bf16 copies of the parameters (None at f32: the module's own)."""
@@ -129,8 +175,11 @@ class _Step:
 
     def _domain_loss(self, params, batch: Batch, domain: int,
                      generators: Generators):
-        """(loss, primary-head logits) of one train-mode domain forward."""
-        out = self._forward(params, batch['image'], domain, generators)
+        """(loss, primary-head logits) of one train-mode domain forward;
+        under a mesh ``batch`` holds the global targets and both are the
+        global batch's."""
+        out = self._gather(self._forward(params, batch['image'], domain,
+                                         generators))
         loss_input = {'prediction': out, 'ground_truth': batch['label_prob']}
         if self.fpl_uda and 'pixel_weight' in batch:
             loss_input['pixel_weight'] = batch['pixel_weight']
@@ -144,8 +193,10 @@ class _Step:
         self.module.eval()
         try:
             with torch.no_grad():
-                return primary_head(self._forward(params, x, domain,
-                                                  None)).float()
+                out = primary_head(self._forward(params, x, domain,
+                                                 None)).float()
+                return out if self.mesh is None else \
+                    self.mesh.gather_rows(out)
         finally:
             self.module.train()
 
@@ -169,6 +220,9 @@ class _Step:
         if loss is not None:
             self._zero_grads()
             loss.backward()
+        if self.mesh is not None:
+            sum_gradients([p for g in self.optimizer.param_groups
+                           for p in g['params']], self.mesh)
         set_scheduled_lr(self.optimizer, self.schedule)
         self.optimizer.step()
         count_update(self.optimizer)
@@ -211,6 +265,7 @@ class JointTrainStep(_Step):
         if len(batches) != self.num_domains:
             raise ValueError('{0} domain batches for {1} domains'.format(
                 len(batches), self.num_domains))
+        batches = [self._global_targets(b) for b in batches]
         if self.accum_steps == 1:
             micro, micro_gens = [batches], [generators]
         else:
@@ -262,7 +317,7 @@ class AlternatingTrainStep(_Step):
             raise ValueError('{0} domain batches for {1} domains'.format(
                 len(batches), self.num_domains))
         metrics, losses = {}, []
-        for d, batch in enumerate(batches):
+        for d, batch in enumerate(map(self._global_targets, batches)):
             loss, out = self._domain_loss(self._params(), batch, d,
                                           generators[d])
             if self.entropy_coeff:
@@ -297,7 +352,7 @@ class DualConsistencyStep(_Step):
     def __call__(self, batches: Sequence[Batch],
                  generators: Sequence[Generators], consis_gate: float
                  ) -> Dict[str, torch.Tensor]:
-        batch0, batch1 = batches
+        batch0, batch1 = map(self._global_targets, batches)
         if 'image1' not in batch1:
             raise ValueError('the dual-consistency step needs image1 in the '
                              'domain-1 batch (an image1 manifest column)')
@@ -336,6 +391,7 @@ class DiscriminatorStep:
         self.module = module
         self.dis = dis
         self.optimizer = optimizer
+        self.mesh = None    # set by parallel.mesh.make_sharded_train_step
 
     def __call__(self, batches: Sequence[Batch]) -> Dict[str, torch.Tensor]:
         self.module.eval()
@@ -354,5 +410,13 @@ class DiscriminatorStep:
             loss = loss + torch.mean(self.dis(outs[1]) ** 2)
         self.optimizer.zero_grad()
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            # means over equal row shares: the global mean is their mean
+            params = list(self.dis.parameters())
+            sum_gradients(params, self.mesh)
+            for p in params:
+                p.grad.div_(self.mesh.size)
+            loss = self.mesh.all_reduce(loss.clone()) / self.mesh.size
         self.optimizer.step()
-        return {'loss_dis': loss.detach()}
+        return {'loss_dis': loss}

@@ -36,6 +36,11 @@ column into the ``image1`` slot (:14-104); ``NiftyDatasetNpy`` reads the
 (:220-324); ``ClassificationDataset`` a class index per row (:327-379);
 ``H5Dataset`` image / label pairs of HDF5 files named in a list file
 (h5_dataset.py:12-45; h5py is imported when an item is read).
+
+``host_shard = (i, P)``: host i of P reads its row-strided share of the
+manifest (rows i, i + P, ...; ``parallel/multihost.py``
+``shard_manifest_rows``), as the JAX package's multi-host training does;
+an empty share raises.
 """
 from __future__ import annotations
 
@@ -90,7 +95,8 @@ class _LRU:
 class NiftyDataset:
     def __init__(self, root_dir: str, csv_file: str, modal_num: int = 1,
                  with_label: bool = False, transform=None,
-                 cache_bytes: int = 0, transform_cache: bool = True):
+                 cache_bytes: int = 0, transform_cache: bool = True,
+                 host_shard=None):
         self.root_dir = root_dir
         with open(csv_file, newline='') as f:
             rows = list(csv.reader(f))
@@ -98,6 +104,19 @@ class NiftyDataset:
             raise ValueError('empty manifest {0}'.format(csv_file))
         self.columns = rows[0]
         self.rows = [r for r in rows[1:] if r]
+        if host_shard is not None:
+            # imported here: a loader worker imports this module and no
+            # torch
+            from fpl_plus_torch.parallel.multihost import shard_manifest_rows
+            idx = shard_manifest_rows(len(self.rows), host_shard[0],
+                                      host_shard[1])
+            if not idx:
+                raise ValueError(
+                    'manifest {0} has fewer rows than the {1} hosts — '
+                    'process {2} would starve (and the endless sampler '
+                    'would spin forever)'.format(csv_file, host_shard[1],
+                                                 host_shard[0]))
+            self.rows = [self.rows[i] for i in idx]
         if modal_num > len(self.columns):
             raise ValueError('manifest {0} has {1} columns, modal_num is {2}'
                              .format(csv_file, len(self.columns), modal_num))
@@ -230,9 +249,10 @@ class NiftyDatasetDual(NiftyDataset):
     ``image1``, feeds the ``image1`` slot."""
 
     def __init__(self, root_dir, csv_file, modal_num=1, with_label=False,
-                 transform=None, cache_bytes=0, transform_cache=True):
+                 transform=None, cache_bytes=0, transform_cache=True,
+                 host_shard=None):
         super().__init__(root_dir, csv_file, modal_num, with_label,
-                         transform, cache_bytes, transform_cache)
+                         transform, cache_bytes, transform_cache, host_shard)
         self.image1_idx = (self.columns.index('pixel_weight_nonl')
                            if 'pixel_weight_nonl' in self.columns else None)
 
@@ -246,9 +266,9 @@ class NiftyDatasetNpy(NiftyDataset):
 
     def __init__(self, root_dir, csv_file, modal_num=1, train_fpl_uda=False,
                  with_label=False, transform=None, cache_bytes=0,
-                 transform_cache=True):
+                 transform_cache=True, host_shard=None):
         super().__init__(root_dir, csv_file, modal_num, with_label,
-                         transform, cache_bytes, transform_cache)
+                         transform, cache_bytes, transform_cache, host_shard)
         self.train_fpl_uda = train_fpl_uda
         self.image_weight_idx = None
         self.pixel_weight_idx = None
@@ -282,9 +302,9 @@ class ClassificationDataset(NiftyDataset):
     ``label`` holds the class index (int64)."""
 
     def __init__(self, root_dir, csv_file, modal_num=1, class_num=2,
-                 with_label=False, transform=None):
+                 with_label=False, transform=None, host_shard=None):
         super().__init__(root_dir, csv_file, modal_num, with_label,
-                         transform)
+                         transform, host_shard=host_shard)
         self.class_num = class_num
 
     def _raw_sample(self, idx):

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fpl_plus_torch.parallel.mesh import active_mesh
+
 
 class PReLU(nn.Module):
     """Parametric ReLU slope holder: one shared slope ``weight`` of shape
@@ -22,6 +24,27 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((1,), float(init_value)))
 
 
+def group_rand(shape, generators, device, rows: bool = True
+               ) -> torch.Tensor:
+    """Uniform draws in [0, 1): ``shape`` from each generator, concatenated
+    along axis 0. Within a data-parallel step (``parallel/mesh.py``
+    ``active_mesh``) with ``rows``, ``shape[0]`` is this rank's share of a
+    group's rows: every generator draws the global batch's rows, as one
+    card draws them, and the rank keeps its own slice of the concatenation
+    (ranks hold contiguous slices of the global batch, in rank order).
+    Draws of one value per group (``rows`` False) are the same on every
+    rank."""
+    mesh = active_mesh()
+    if mesh is None or not rows:
+        return torch.cat([torch.rand(tuple(shape), generator=g,
+                                     device=device) for g in generators])
+    n_local = shape[0] * len(generators)
+    full = torch.cat([torch.rand((shape[0] * mesh.size,) + tuple(shape[1:]),
+                                 generator=g, device=device)
+                      for g in generators])
+    return full[mesh.rank * n_local:(mesh.rank + 1) * n_local]
+
+
 def grouped_dropout(x: torch.Tensor, p: float, generators=None
                     ) -> torch.Tensor:
     """Dropout with explicit generators (flax ``nn.Dropout`` semantics).
@@ -32,7 +55,8 @@ def grouped_dropout(x: torch.Tensor, p: float, generators=None
     by group, the same masks as M separate passes of one group each. Rate 0
     is the identity and draws nothing. A voxel is kept where a uniform draw
     in [0, 1) is below the keep probability ``1 - p``; kept values are
-    scaled by ``1 / (1 - p)`` in the activation dtype."""
+    scaled by ``1 / (1 - p)`` in the activation dtype. Within a
+    data-parallel step the mask is the global batch's (``group_rand``)."""
     if p == 0 or generators is None:
         return x
     m = len(generators)
@@ -41,8 +65,7 @@ def grouped_dropout(x: torch.Tensor, p: float, generators=None
                          .format(x.shape[0], m))
     keep_prob = 1.0 - p
     shape = (x.shape[0] // m,) + tuple(x.shape[1:])
-    keep = torch.cat([torch.rand(shape, generator=g, device=x.device)
-                      < keep_prob for g in generators])
+    keep = group_rand(shape, generators, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

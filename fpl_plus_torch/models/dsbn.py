@@ -27,6 +27,16 @@ unbiased running variance, keys ``weight/bias/running_mean/running_var/
 num_batches_tracked``, and ``F.batch_norm`` in both modes (no fused kernel:
 its activation is LeakyReLU, applied by the caller).
 
+Within a data-parallel train step (``parallel/mesh.py`` ``active_mesh``)
+both take the train-mode statistics over the global batch, as the JAX
+package's sharded step does (XLA computes its mean over the global batch):
+the per-channel sum, sum of squares and count of this rank's rows go
+through one differentiable all-reduce, the variance is the JAX package's
+``E[x^2] - E[x]^2`` clamped at 0 (``models/dsbn.py:50-60`` there), in
+f32, and the running variance takes the global unbiased variance.
+``torch.nn.SyncBatchNorm`` would do this on the card only; this runs on
+the CPU's gloo ranks as well.
+
 ``InstanceNorm`` (the discriminator's normalisation, the JAX package's
 ``models/dsbn.py:84-93``): per sample and channel over the spatial axes,
 biased variance, eps 1e-5, no affine terms and no running statistics; that
@@ -39,6 +49,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+from fpl_plus_torch.parallel.mesh import active_mesh, all_reduce_sum
+
+
+def global_batch_norm(x: torch.Tensor, bank: nn.Module, momentum: float,
+                      eps: float, mesh) -> torch.Tensor:
+    """Train-mode batch norm of ``x [B, C, ...]`` (this rank's rows) with
+    the statistics of the global batch over ``mesh``, and the update of
+    ``bank``'s running statistics (see the module docstring). Returns
+    ``x``'s dtype."""
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    xf = x.float()
+    count = torch.full((1,), float(x.numel() // c), device=x.device)
+    stats = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                      count]), mesh)
+    n = stats[2 * c].detach()
+    mean = stats[:c] / n
+    var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+    with torch.no_grad():
+        bank.running_mean.mul_(1 - momentum).add_(momentum * mean)
+        bank.running_var.mul_(1 - momentum).add_(
+            momentum * var * n / (n - 1))
+    scale = bank.weight.float() * torch.rsqrt(var + eps)
+    shift = bank.bias.float() - mean * scale
+    view = (1, c) + (1,) * (x.dim() - 2)
+    return (xf * scale.reshape(view) + shift.reshape(view)).to(x.dtype)
 
 
 class _Bank(nn.Module):
@@ -78,10 +114,14 @@ class DomainBatchNorm(nn.Module):
             raise ValueError('domain {0} outside [0, {1})'.format(
                 domain, len(self.bns)))
         bank = self.bns[domain]
-        stats = bank.running_mean.dtype
-        y = F.batch_norm(x, bank.running_mean, bank.running_var,
-                         bank.weight.to(stats), bank.bias.to(stats), True,
-                         self.momentum, self.eps)
+        mesh = active_mesh()
+        if mesh is not None:
+            y = global_batch_norm(x, bank, self.momentum, self.eps, mesh)
+        else:
+            stats = bank.running_mean.dtype
+            y = F.batch_norm(x, bank.running_mean, bank.running_var,
+                             bank.weight.to(stats), bank.bias.to(stats),
+                             True, self.momentum, self.eps)
         bank.num_batches_tracked.add_(1)
         return F.prelu(y, prelu_alpha.to(y.dtype))
 
@@ -100,6 +140,10 @@ class BatchNorm(_Bank):
         stats = self.running_mean.dtype
         if self.training:
             self.num_batches_tracked.add_(1)
+            mesh = active_mesh()
+            if mesh is not None:
+                return global_batch_norm(x, self, self.momentum, self.eps,
+                                         mesh)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight.to(stats), self.bias.to(stats),
                             self.training, self.momentum, self.eps)

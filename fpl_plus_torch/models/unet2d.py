@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from fpl_plus_torch.models.common import (fold_depth_to_batch,
-                                          grouped_dropout, max_pool,
+                                          group_rand, grouped_dropout,
+                                          max_pool,
                                           resize_linear,
                                           unfold_depth_from_batch,
                                           upsample_align_corners)
@@ -212,9 +213,11 @@ class UNet2DURPC(nn.Module):
 
 def _group_uniform(shape, low: float, high: float, generators, device):
     """Uniform draws in [low, high): ``shape`` per generator, the groups
-    concatenated along axis 0."""
-    return torch.cat([torch.rand(shape, generator=g, device=device)
-                      for g in generators]) * (high - low) + low
+    concatenated along axis 0 (``models/common.py`` ``group_rand``). A 1-D
+    ``shape`` holds values of the group, not of its rows: within a
+    data-parallel step it is the same on every rank."""
+    return group_rand(shape, generators, device,
+                      rows=len(shape) > 1) * (high - low) + low
 
 
 def row_quantile(flat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

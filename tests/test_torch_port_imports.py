@@ -42,7 +42,7 @@ def test_fresh_import_of_every_module_loads_no_forbidden_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 61    # ... NLL, cls, checkpoint tools included
+    assert int(n_modules) >= 64    # ... checkpoint tools, parallel/
     assert bad == '[]'
 
 
@@ -77,11 +77,35 @@ def test_source_scan_finds_no_forbidden_import():
                    'metrics/cls_metrics.py', 'io/loader.py', 'io/dataset.py',
                    'utils/flax_msgpack.py', 'utils/convert.py',
                    'utils/model_operate.py', 'utils/preprocess.py',
-                   'utils/image_process.py'):
+                   'utils/image_process.py', 'parallel/__init__.py',
+                   'parallel/mesh.py', 'parallel/multihost.py'):
         assert pkg / module in sources
     for path in sources:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, '{0} imports {1}'.format(path, bad)
+
+
+def test_parallel_package_exports_the_jax_names_and_imports_no_jax():
+    """``fpl_plus_torch.parallel`` exports the names of the JAX package's
+    ``parallel/__init__.py`` (read from its source) and, imported alone in
+    a fresh interpreter, loads no forbidden package."""
+    jax_init = ast.parse((ROOT / 'fpl_plus_tpu' / 'parallel' /
+                          '__init__.py').read_text())
+    names = [ast.literal_eval(node.value) for node in jax_init.body
+             if isinstance(node, ast.Assign)
+             and node.targets[0].id == '__all__'][0]
+    code = ('import sys\n'
+            'import fpl_plus_torch.parallel as p\n'
+            'import fpl_plus_torch.parallel.multihost\n'
+            'print(sorted(p.__all__))\n'
+            'print(sorted(m for m in sys.modules '
+            'if m.split(".")[0] in {0!r}))\n').format(FORBIDDEN)
+    out = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    exported, bad = out.stdout.strip().splitlines()[-2:]
+    assert exported == str(sorted(names))
+    assert bad == '[]'
 
 
 def test_loader_worker_chain_imports_no_torch():
