@@ -182,9 +182,29 @@ then runs, each phase failing the script on any error:
     18 launches per eval forward; then an NCCL group of one in this
     process: the sharded step and the sharded Inferer against the plain
     ones, and both steps timed (CUDA events): the wrapper's cost. The
-    collectives' bytes per step and per volume are reckoned and printed.
+    collectives' bytes per step and per volume are reckoned and printed;
+32. the SSL, WSL and NLL steps over a mesh: each of the 15 methods at full
+    width (UNet2D5 at NET_CFG with one domain, CCT and URPC on their zoo
+    nets; global batch 2 + 2 crops of [28,128,128], 2 for WSL, CoTeaching
+    and TriNet; Adam, the network's dropout and the teacher's noise; one
+    step, DAST three) on two spawned gloo ranks on cuda:0 against one
+    process on the same card from the same weights, batch and generators,
+    TF32 off: phase 11's tolerances on the first step's loss components,
+    dice, gradients and statistics, the parameters after Adam, the EMA
+    teacher, CoTeaching's and TriNet's masks (a voxel may differ only at a
+    tie of the keep cutoff) and DAST's gates; the ranks' states, teachers,
+    masks and gates identical (rank 1 skews its host values: USTM's
+    rotation and DMPLS's ``beta`` must be rank 0's); host seconds, peak
+    memory and the gathered and all-reduced bytes per step; no launch;
+33. the paradigm CLIs through NCCL at world size 1 (the ``FPLX_*`` triple
+    of one process, ``multihost = True``): ``main_ssl train`` of
+    MeanTeacher with ``eva_main``, ``main_wsl train`` of GatedCRF on
+    scribbles, ``main_nll train`` of DAST and of TriNet (2 iterations, a
+    validation, the auto test stage each), and ``main_nll_clslsr`` (its
+    maps against phase 25's): rc 0, the barriers through NCCL, the group
+    closed, launches equal to 18 / 36 / 54 x the eval forwards.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31) sets the
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33) sets the
 launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -3979,6 +3999,427 @@ def nccl_world1_phase(dev):
             'step_ms': ms, 'overhead': overhead}
 
 
+
+# -- phase 32: the paradigm steps over 2 gloo ranks on one card -------------
+PARADIGM_DIST = ([('ssl', m) for m in PARADIGMS['ssl'][2]]
+                 + [('wsl', m) for m in PARADIGMS['wsl'][2]]
+                 + [('nll', m) for m in NLL_METHODS])
+PARADIGM_DIST_ROWS = 2           # global rows per stream (1 per rank)
+DAST_DIST_STEPS = 3              # DAST's queues of 2 gate from step 3
+PARADIGM_LR = 1e-4               # paradigm_config's and nll_config's rate
+
+
+def to_dev(tree, dev):
+    """Tensors of a nested batch to ``dev``; host numbers stay."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_dev(v, dev) for v in tree)
+    return tree
+
+
+def skewed(batches, hyper, rank):
+    """A rank's own host values: USTM's rotation turned by ``rank``,
+    DMPLS's ``beta`` moved by ``rank / 4`` (the step takes rank 0's)."""
+    if isinstance(batches, tuple) and isinstance(batches[-1], int):
+        batches = batches[:-1] + ((batches[-1] + rank) % 4,)
+    if 'beta' in hyper:
+        hyper = dict(hyper, beta=hyper['beta'] + rank / 4)
+    return batches, hyper
+
+
+@contextlib.contextmanager
+def counting_collectives(sink):
+    """Bytes of the mesh's gathers (``Mesh.gather_segments``: each the
+    all-reduce of the global buffer) and of all its all-reduces."""
+    from fpl_plus_torch.parallel.mesh import Mesh
+    gather, reduce = Mesh.gather_segments, Mesh.all_reduce
+
+    def gathering(self, t, sizes):
+        out = gather(self, t, sizes)
+        sink['gathered'] += out.numel() * out.element_size()
+        return out
+
+    def reducing(self, t):
+        sink['all_reduced'] += t.numel() * t.element_size()
+        return reduce(self, t)
+
+    Mesh.gather_segments, Mesh.all_reduce = gathering, reducing
+    try:
+        yield sink
+    finally:
+        Mesh.gather_segments, Mesh.all_reduce = gather, reduce
+
+
+def paradigm_dist_run(kind, method, i, dev, mesh=None):
+    """Phase 32's step(s) of one method at full width with TF32 off (the
+    network's dropout and the teacher's noise on): on the global batch, or
+    over ``mesh`` on this rank's rows (a rank r > 0 skewing its host
+    values). The output convolutions are scaled as in phase 21
+    (``scale_heads_``). Results on the card: metrics, the first step's
+    gradients and statistics, the state, the teacher, the masks, DAST's
+    gates, host seconds and peak memory, the collectives' bytes per
+    step."""
+    from fpl_plus_torch.parallel import (make_sharded_train_step, replicate,
+                                         shard_batch)
+    gen = torch.Generator().manual_seed(SEED + 340 + i)
+    if kind == 'nll':
+        cfg = nll_config(method)
+        net = nll_net(cfg, method, SEED + 320 + i)
+        host = nll_batches(method, gen, 2 * PARADIGM_DIST_ROWS
+                           if method == 'DAST' else PARADIGM_DIST_ROWS,
+                           WINDOW)
+    else:
+        cfg = paradigm_config(kind, method)
+        net = paradigm_net(cfg, method, SEED + 320 + i)
+        host = paradigm_batches(kind, method, gen, PARADIGM_DIST_ROWS,
+                                WINDOW, 'cpu')
+    scale_heads_(net)                # logits of order 1, as in phase 21
+    net = net.to(dev)
+    if mesh is not None:
+        replicate(net, mesh)        # before the teacher copies the student
+    agent, step = (nll_agent(cfg, net, dev) if kind == 'nll'
+                   else paradigm_agent(kind, cfg, net, dev))
+    if mesh is not None:
+        step = make_sharded_train_step(step, mesh)
+    steps = DAST_DIST_STEPS if method == 'DAST' else 1
+    metrics, gates, seconds, grads = [], [], [], None
+    coll = {'gathered': 0, 'all_reduced': 0}
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(dev)
+    with tf32_off(), recorded_masks() as masks, counting_collectives(coll):
+        for it in range(PARADIGM_IT, PARADIGM_IT + steps):
+            batches = to_dev(host, dev)
+            hyper = (agent.training_hyper(it) if kind == 'nll'
+                     else paradigm_hyper(agent, method, it))
+            if mesh is not None:
+                batches = shard_batch(batches, mesh)
+                batches, hyper = skewed(batches, hyper, mesh.rank)
+            sync(dev)
+            t0 = time.perf_counter()
+            m = step(batches, agent._step_generators(it), **hyper)
+            sync(dev)
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            gates.append(dict(agent.gates) if getattr(agent, 'gates', None)
+                         else None)
+            if grads is None:
+                grads = {k: p.grad.detach().clone()
+                         for k, p in net.named_parameters()}
+                stats = {k: b.detach().clone()
+                         for k, b in net.named_buffers()
+                         if k.endswith(('running_mean', 'running_var'))}
+    return {'metrics': metrics, 'grads': grads, 'gates': gates,
+            'stats': stats,
+            'state': {k: v.detach().clone()
+                      for k, v in net.state_dict().items()},
+            'teacher': None if agent.teacher is None else {
+                k: v.clone() for k, v in agent.teacher.params.items()},
+            'masks': masks, 'seconds': seconds, 'steps': steps,
+            'peak_gib': (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == 'cuda' else None),
+            'bytes_per_step': {k: v / steps for k, v in coll.items()}}
+
+
+def compare_paradigm(got, want, alpha=None):
+    """Rank 0's steps against the one-process steps: the first step's loss
+    components and dice, its gradients and the statistics after it by phase
+    11's tolerances; the parameters after Adam within twice the rate per
+    update, and after one update equal wherever the gradient is above its
+    tolerance; the teacher within its share of that; the masks equal but
+    at a tie of the keep cutoff (MASK_TIE_TOL); the gates equal."""
+    m_got, m_want = got['metrics'][0], want['metrics'][0]
+    keys = [k for k in m_want if not k.startswith('class_dice')]
+    loss_err = max(abs(float(m_got[k]) - float(m_want[k])) for k in keys)
+    dice_err = float((m_got['class_dice_0']
+                      - m_want['class_dice_0']).abs().max())
+    top = max(float(g.abs().max()) for g in want['grads'].values())
+    worst, worst_name, flips = 0.0, None, 0
+    updates = want['steps']
+    for name, g in want['grads'].items():
+        tol = GRAD_RTOL * float(g.abs().max()) + GRAD_NET_TOL * top
+        err = float((got['grads'][name] - g).abs().max())
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+        moved = (got['state'][name] - want['state'][name]).abs()
+        check(float(moved.max()) <= updates * 2 * PARADIGM_LR * (1 + 1e-3),
+              'parameter {0} off by {1:.3g} after Adam'.format(
+                  name, float(moved.max())))
+        off = moved > 1e-2 * PARADIGM_LR
+        if updates == 1:
+            check(bool((g.abs()[off] <= tol).all()),
+                  'parameter {0} moved otherwise where its gradient is '
+                  'above the tolerance'.format(name))
+        flips += int(off.sum())
+    stats_err = max(float((got['stats'][name] - t).abs().max()
+                          / t.abs().max()) for name, t in want['stats'].items())
+    teacher_err = None
+    if want['teacher'] is not None:
+        teacher_err = max(float((got['teacher'][k] - t).abs().max())
+                          for k, t in want['teacher'].items())
+        check(teacher_err <= (1 - alpha) * 2 * PARADIGM_LR * (1 + 1e-3),
+              'teacher off by {0:.3g}'.format(teacher_err))
+    check(len(got['masks']) == len(want['masks']), '{0} vs {1} masks'.format(
+        len(got['masks']), len(want['masks'])))
+    mask_diff = [masks_agree(a, b) for a, b in zip(got['masks'],
+                                                   want['masks'])]
+    check(all(d == 0 or t for d, t in mask_diff),
+          'masks disagree off the cutoff: {0}'.format(mask_diff))
+    check(got['gates'] == want['gates'], 'gates {0} vs {1}'.format(
+        got['gates'], want['gates']))
+    check(loss_err <= STEP_LOSS_TOL, 'loss off by {0:.3g}'.format(loss_err))
+    check(dice_err <= STEP_DICE_TOL, 'dice off by {0:.3g}'.format(dice_err))
+    check(worst <= 1.0, 'gradient {0} at {1:.3g} of its tolerance'.format(
+        worst_name, worst))
+    check(stats_err <= STATS_TOL, 'running statistics off by {0:.3g}'.format(
+        stats_err))
+    return {'loss_err': loss_err, 'dice_err': dice_err, 'grad_worst': worst,
+            'stats_err': stats_err, 'teacher_err': teacher_err,
+            'noise_flips': flips, 'mask_diff': [d for d, _ in mask_diff],
+            'gates': want['gates']}
+
+
+def replica_gap(tensors, mesh):
+    """The largest |x - x on rank 0| of ``tensors`` over the ranks (a
+    broadcast of rank 0's values, an all-reduce of the ranks' gaps)."""
+    if not tensors:
+        return 0.0
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    ref = mesh.broadcast(flat.clone())
+    return float(mesh.all_reduce((flat - ref).abs().max().reshape(1))
+                 .item())
+
+
+def paradigm_dist_rank(rank, port, work, device):
+    """Rank ``rank`` of phase 32 (a gloo group of DIST_RANKS on
+    ``device``): each method's sharded step(s); rank 0 first runs the
+    one-process step(s) and holds its rows against them; the ranks'
+    states, teachers, masks and gates are compared across the ranks.
+    The ranks take the calling process's shapes from ``work``; rank 0
+    writes the results there."""
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.parallel.mesh import Mesh
+    globals().update(torch.load(os.path.join(work, 'shapes.pt'),
+                                weights_only=False))
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    dist.init_process_group('gloo', init_method='tcp://localhost:{0}'.format(
+        port), world_size=DIST_RANKS, rank=rank)
+    try:
+        mesh = Mesh(dist.group.WORLD, dev)
+        dsbn_prelu.launches = 0
+        results = {}
+        for i, (kind, method) in enumerate(PARADIGM_DIST):
+            want = (paradigm_dist_run(kind, method, i, dev) if rank == 0
+                    else None)
+            if dev.type == 'cuda':
+                torch.cuda.empty_cache()
+            got = paradigm_dist_run(kind, method, i, dev, mesh)
+            gaps = {
+                'state': replica_gap(list(got['state'].values()), mesh),
+                'teacher': replica_gap(list((got['teacher'] or {}).values()),
+                                       mesh),
+                'masks': replica_gap([m for _, _, m in got['masks']], mesh),
+                'gates': replica_gap([torch.tensor(
+                    [g['dbc'], g['st']] if g else [-1.0, -1.0])
+                    for g in got['gates']], mesh)}
+            if rank == 0:
+                alpha = None
+                if want['teacher'] is not None:
+                    alpha = min(1 - 1 / 101, 0.99)   # iter_max 100
+                try:
+                    cmp = compare_paradigm(got, want, alpha)
+                    error = None
+                except RuntimeError as exc:
+                    cmp, error = None, str(exc)
+                results['{0} {1}'.format(kind, method)] = {
+                    'compare': cmp, 'error': error, 'gaps': gaps,
+                    'one_s': want['seconds'], 'rank0_s': got['seconds'],
+                    'one_peak_gib': want['peak_gib'],
+                    'rank0_peak_gib': got['peak_gib'],
+                    'bytes_per_step': got['bytes_per_step'],
+                    'steps': got['steps']}
+            del want, got
+            if dev.type == 'cuda':
+                torch.cuda.empty_cache()
+        if rank == 0:
+            results['launches'] = dsbn_prelu.launches
+            torch.save(results, os.path.join(work, 'paradigm.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def paradigm_dist_phase(dev):
+    """Phase 32: the 15 SSL, WSL and NLL methods at full width, 2 gloo
+    ranks on cuda:0 against one process on the same card (TF32 off)."""
+    import torch.multiprocessing as tmp
+    from fpl_plus_torch.parallel.multihost import free_local_port
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as work:
+        torch.save({'PARADIGM_NET': PARADIGM_NET, 'ZOO_CFG': ZOO_CFG,
+                    'WINDOW': WINDOW}, os.path.join(work, 'shapes.pt'))
+        t0 = time.perf_counter()
+        tmp.start_processes(paradigm_dist_rank, args=(free_local_port(), work,
+                                                      str(dev)),
+                            nprocs=DIST_RANKS, join=True,
+                            start_method='spawn')
+        wall = time.perf_counter() - t0
+        results = torch.load(os.path.join(work, 'paradigm.pt'),
+                             weights_only=False)
+    launches = results.pop('launches')
+    for name, r in results.items():
+        c = r['compare']
+        print('paradigm 2 gloo ranks (phase 32) {0}: {1}; replica gaps '
+              '(state, teacher, masks, gates) {2}; host s one process {3} '
+              'rank 0 {4}; peak GiB one process {5} rank 0 {6}; '
+              'bytes per step gathered {7:.0f} all-reduced {8:.0f}'.format(
+                  name, r['error'] if c is None else
+                  'loss err {0:.3g}, dice err {1:.3g}, gradients at {2:.3g} '
+                  'of tolerance, statistics {3:.3g}, teacher {4}, {5} '
+                  'noise-level flips, mask voxels differing {6}, gates {7}'
+                  .format(c['loss_err'], c['dice_err'], c['grad_worst'],
+                          c['stats_err'], c['teacher_err'],
+                          c['noise_flips'], c['mask_diff'], c['gates']),
+                  {k: v for k, v in r['gaps'].items()},
+                  ['{0:.3f}'.format(t) for t in r['one_s']],
+                  ['{0:.3f}'.format(t) for t in r['rank0_s']],
+                  r['one_peak_gib'], r['rank0_peak_gib'],
+                  r['bytes_per_step']['gathered'],
+                  r['bytes_per_step']['all_reduced']))
+    for name, r in results.items():
+        check(r['error'] is None, 'phase 32 {0}: {1}'.format(name,
+                                                             r['error']))
+        check(all(g == 0.0 for g in r['gaps'].values()),
+              'phase 32 {0}: the ranks disagree {1}'.format(name, r['gaps']))
+    check(launches == 0, 'the paradigm steps launched the kernel {0} '
+          'times'.format(launches))
+    print('paradigm 2 gloo ranks (phase 32): {0} methods, ranks wall {1:.1f} '
+          's'.format(len(results), wall))
+    return {'methods': results, 'wall_s': wall}
+
+
+# -- phase 33: the paradigm and CLSLSR CLIs through NCCL at one rank --------
+def fplx_cfg(cfg):
+    """A copy of a run's config whose [training] asks for the multihost
+    path at a mesh of one (``multihost = True``, ``mesh_devices = 1``)."""
+    with open(cfg) as f:
+        text = f.read()
+    check('random_seed = 3\n' in text, 'no [training] random_seed in ' + cfg)
+    out = cfg.replace('.cfg', '_fplx.cfg')
+    with open(out, 'w') as f:
+        f.write(text.replace('random_seed = 3\n', 'random_seed = 3\n'
+                             'multihost = True\nmesh_devices = 1\n'))
+    return out
+
+
+def read_maps(root, csv_name):
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    rows = list(csv.reader(open(os.path.join(root, csv_name))))[1:]
+    return [load_image_as_nd_array(os.path.join(
+        root, 'slsr_conf', os.path.basename(label)))['data_array']
+        for _, label in rows]
+
+
+def paradigm_nccl_phase(root, dev, fwd_per_volume):
+    """Phase 33: ``main_ssl`` (MeanTeacher, with ``eva_main``),
+    ``main_wsl`` (GatedCRF on scribbles), ``main_nll`` (DAST, TriNet) for 2
+    iterations each with one validation and the auto test stage, and
+    ``main_nll_clslsr``, each with the ``FPLX_*`` triple of one process: an
+    NCCL group of one rank, its barriers, the mesh's steps and Inferer;
+    launches equal to 18 x the UNet2D5 eval forwards (36 per BiNet
+    forward, 54 per TriNet forward); the CLSLSR maps against phase 25's."""
+    import torch.distributed as dist
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.agents.nll import DASTStep, TriNetStep
+    from fpl_plus_torch.agents.ssl import MeanTeacherStep
+    from fpl_plus_torch.agents.wsl import RegularizedStep
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.parallel.multihost import free_local_port
+    before_maps = read_maps(root, 'd1_train.csv')     # phase 25's
+    runs = {
+        # tag: (main, stage, cfg, train steps, validations, peers, step)
+        'mt_nccl': (cli.main_ssl, 'train', paradigm_cli_cfg(
+            root, 'ssl', 'MeanTeacher', 'mt_nccl',
+            evaluation=EVAL_SECTION.format(root=root)), 2, 1, 1,
+            MeanTeacherStep),
+        'crf_nccl': (cli.main_wsl, 'train', paradigm_cli_cfg(
+            root, 'wsl', 'GatedCRF', 'crf_nccl',
+            train_csv='scribble_train.csv',
+            label_transform='PartialLabelToProbability'), 2, 1, 1,
+            RegularizedStep),
+        'dast_nccl': (cli.main_nll, 'train', nll_cli_cfg(
+            root, 'dast_nccl', 'DAST', 2, train_csv='d1_train.csv'), 2, 1,
+            2, DASTStep),
+        'tri_nccl': (cli.main_nll, 'train', nll_cli_cfg(
+            root, 'tri_nccl', 'TriNet', 2), 2, 1, 3, TriNetStep),
+        'clslsr_nccl': (cli.main_nll_clslsr, 'test', nll_cli_cfg(
+            root, 'clslsr_nccl', train_csv='d1_train.csv', clslsr=True), 0,
+            0, 1, None),
+    }
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    results = {}
+    for tag, (main, stage, cfg, steps, validations, peers, step_cls) in \
+            runs.items():
+        cfg = fplx_cfg(cfg)
+        seen, step_ms, valid_ms = [], [], []
+        with contextlib.ExitStack() as stack:
+            if step_cls is not None:
+                stack.enter_context(timed_method(step_cls, '__call__',
+                                                 step_ms))
+            stack.enter_context(fplx_env(free_local_port()))
+            stack.enter_context(watching_barriers(seen))
+            forwards = stack.enter_context(counting_forwards())
+            torch.cuda.reset_peak_memory_stats()
+            dsbn_prelu.launches = 0      # this path's count starts here
+            t0 = time.perf_counter()
+            rc = main([stage, cfg], device=str(dev))
+            wall = time.perf_counter() - t0
+            launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, 'phase 33 {0} rc {1}'.format(tag, rc))
+        check(not dist.is_initialized(), 'the group outlived ' + tag)
+        tags = [t for t, _, _ in seen]
+        wanted = ({'clslsr-written', 'pre-exit'} if stage == 'test' else
+                  {'train-ckpt-written', 'pre-ckpt-resolve', 'pre-exit'})
+        check(wanted <= set(tags) and all(b == backend and w == 1
+                                          for _, b, w in seen),
+              '{0} barriers {1}'.format(tag, seen))
+        check(len(step_ms) == steps, '{0}: {1} steps'.format(tag,
+                                                             len(step_ms)))
+        n_eval = (validations + 1) * N_VOLUMES * fwd_per_volume * peers
+        check(forwards[0] == n_eval and launches == 18 * forwards[0],
+              '{0}: {1} eval forwards (expected {2}), {3} launches'.format(
+                  tag, forwards[0], n_eval, launches))
+        extra = ''
+        if stage == 'train':
+            labels = [n for n in os.listdir(os.path.join(
+                root, 'out_' + tag, tag + '_target_test'))
+                if n.endswith('.nii.gz')]
+            check(len(labels) == N_VOLUMES, '{0} labels {1}'.format(
+                tag, labels))
+        else:
+            agree = [float(np.mean(a == b)) for a, b in zip(
+                read_maps(root, 'd1_train.csv'), before_maps)]
+            check(len(agree) == N_VOLUMES and min(agree) >= BATCH_AGREE,
+                  'CLSLSR maps against phase 25: {0}'.format(agree))
+            extra = '; maps agree with phase 25 on {0}'.format(agree)
+        results[tag] = {'launches': launches, 'forwards': forwards[0],
+                        'step_ms': step_ms, 'wall_s': wall,
+                        'peak_gib': peak, 'barriers': tags}
+        print('paradigm nccl (phase 33, NCCL, 1 rank) {0} ({1} {2}): rc 0, '
+              'barriers {3}, {4} steps at {5} ms, {6} eval forwards, {7} '
+              'kernel launches, peak {8:.2f} GiB, {9:.1f} s wall{10}'.format(
+                  tag, main.__name__, stage, tags, len(step_ms),
+                  ['{0:.1f}'.format(t) for t in step_ms], forwards[0],
+                  launches, peak, wall, extra))
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -4040,6 +4481,8 @@ def main():
         scale_out = scale_out_phase(dev)
         multihost_cli = multihost_cli_phase(ws, dev, fwd_per_volume)
         nccl = nccl_world1_phase(dev)
+        paradigm_dist = paradigm_dist_phase(dev)
+        paradigm_nccl = paradigm_nccl_phase(ws, dev, fwd_per_volume)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
@@ -4137,7 +4580,8 @@ def main():
                      + cls_cli['launches'] + pool['launches']
                      + tools['launches'] + converter['launches']
                      + scale_out['launches'] + multihost_cli['launches']
-                     + nccl['launches']),
+                     + nccl['launches']
+                     + sum(r['launches'] for r in paradigm_nccl.values())),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -4218,6 +4662,24 @@ def main():
         'nccl_world1_overhead': nccl['overhead'],
         'nccl_world1_launches': nccl['launches'],
         'scale_out_bytes': bytes_,
+        'paradigm_dist': {
+            name: {'loss_err': r['compare']['loss_err'],
+                   'grad_worst': r['compare']['grad_worst'],
+                   'stats_err': r['compare']['stats_err'],
+                   'teacher_err': r['compare']['teacher_err'],
+                   'mask_diff': r['compare']['mask_diff'],
+                   'replica_gaps': r['gaps'], 'one_s': r['one_s'],
+                   'rank0_s': r['rank0_s'],
+                   'one_peak_gib': r['one_peak_gib'],
+                   'rank0_peak_gib': r['rank0_peak_gib'],
+                   'bytes_per_step': r['bytes_per_step']}
+            for name, r in paradigm_dist['methods'].items()},
+        'paradigm_nccl_launches': {t: r['launches']
+                                   for t, r in paradigm_nccl.items()},
+        'paradigm_nccl_forwards': {t: r['forwards']
+                                   for t, r in paradigm_nccl.items()},
+        'paradigm_nccl_step_ms': {t: r['step_ms']
+                                  for t, r in paradigm_nccl.items()},
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -26,10 +26,11 @@ batch must divide), and every rank of a host runs the same seeded loaders
 and keeps its rows of that host batch (``parallel/mesh.py``
 ``shard_batch``); on one host the ranks therefore train on exactly the
 batches of a one-card run. A host's worker budget is one process's: each
-of its ranks gets ``(cpu_count - 1) // local ranks`` workers. An agent
-without a data-parallel step (``data_parallel`` False: every agent but
-the segmentation agent) raises ``NotImplementedError`` under a mesh or in
-a multi-process run instead of training on one device.
+of its ranks gets ``(cpu_count - 1) // local ranks`` workers. The
+segmentation agent and those built on it (SSL, WSL, NLL, CLSLSR) run
+over a mesh; an agent without a data-parallel step (``data_parallel``
+False: the classification agent) raises ``NotImplementedError`` under a
+mesh or in a multi-process run instead of training on one device.
 """
 from __future__ import annotations
 
@@ -64,10 +65,11 @@ def seed_everything(seed: int) -> None:
 
 
 NOT_DATA_PARALLEL = (
-    '{0} has no data-parallel step yet: it runs on one device, in one '
-    'process (the data-parallel steps of the SSL, WSL and NLL agents are '
-    'queued in ROADMAP.md section 1, item 1); set mesh_devices = 1 and a '
-    'single-entry gpus list, without multihost')
+    '{0} has no data-parallel step: it runs on one device, in one process '
+    '(the JAX package\'s classification agent builds no mesh either, '
+    'fpl_plus_tpu/agents/agent_cls.py, and would train on one device in '
+    'silence); set mesh_devices = 1 and a single-entry gpus list, without '
+    'multihost')
 
 
 class NetRunAgent(ABC):

@@ -79,8 +79,10 @@ Data parallelism (``get_mesh()``, the JAX package's
 ``agents/agent_seg.py:500-519,695,812,1053,1125``): ``train_valid``
 broadcasts rank 0's network (and discriminator), wraps the steps with
 ``parallel.make_sharded_train_step`` and hands each rank its rows of the
-host batch (``train_batch_size`` is the global batch and must divide over
-the ranks); validation and the test stage run the sharded Inferer, so
+host batch (``train_batch_size``, and the batch of every further train
+stream a subclass names in ``batch_size_keys``, is global and must divide
+over the ranks; the SSL, WSL and NLL agents run this loop with their
+steps); validation and the test stage run the sharded Inferer, so
 every rank computes the same dice, picks the same best iteration and
 reaches the same labels; only global rank 0 writes checkpoints, pointers,
 scalars, predictions and the FPL list, and barriers separate its writes
@@ -263,6 +265,9 @@ def init_dis(dis: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 class SegmentationAgent(NetRunAgent):
     data_parallel = True
+    # the [dataset] batch sizes of the train streams: global, each must
+    # divide over a mesh
+    batch_size_keys = ('train_batch_size',)
 
     def __init__(self, config: dict, stage: str, device: torch.device):
         super().__init__(config, stage, device)
@@ -437,11 +442,12 @@ class SegmentationAgent(NetRunAgent):
             self._create_dis()
         mesh = self.get_mesh()
         if mesh is not None:
-            bs = self.config['dataset']['train_batch_size']
-            if bs % mesh.size:
-                raise ValueError(
-                    'train_batch_size {0} must be divisible by the '
-                    '{1}-device mesh'.format(bs, mesh.size))
+            for key in self.batch_size_keys:
+                bs = self.config['dataset'][key]
+                if bs % mesh.size:
+                    raise ValueError(
+                        '{0} {1} must be divisible by the {2}-device '
+                        'mesh'.format(key, bs, mesh.size))
         sched_params = dict(cfg_t)
         sched_params['last_iter'] = -1
         # the dsbn reference zeroes the restored valid_pred on resume
@@ -451,6 +457,13 @@ class SegmentationAgent(NetRunAgent):
         if iter_start > 0:
             opt_state, best_state = self._resume(module, ckpt_dir, prefix,
                                                  iter_start, sched_params)
+        if mesh is not None:
+            # rank 0's state everywhere, before a step copies any of it (an
+            # EMA teacher); a resume loaded the same file on every rank, so
+            # the optimizer states agree already
+            for net in (module, self.dis):
+                if net is not None:
+                    replicate(net, mesh)
         optimizer = create_optimizer(cfg_t, module.parameters())
         if opt_state is not None:
             optimizer.load_state_dict(opt_state)
@@ -466,11 +479,6 @@ class SegmentationAgent(NetRunAgent):
         dis_step = (DiscriminatorStep(module, self.dis, self.dis_optimizer)
                     if self.dis is not None else None)
         if mesh is not None:
-            # rank 0's state everywhere; a resume loaded the same file on
-            # every rank, so the optimizer states agree already
-            for net in (module, self.dis):
-                if net is not None:
-                    replicate(net, mesh)
             step = make_sharded_train_step(step, mesh)
             if dis_step is not None:
                 dis_step = make_sharded_train_step(dis_step, mesh)

@@ -24,6 +24,17 @@ TriNet), and read ``[noisy_label_learning]``:
   reads its two selection scores on the host after the update, one
   device-to-host sync per step that the method needs; the rank queues,
   host Python, set the NEXT iteration's DBC and ST gates.
+
+Under a mesh (``agents/ssl.py``'s data parallelism) each rank forwards its
+rows and the peers' outputs are gathered in the one-card order (DAST's
+clean and noisy rows as two segments), with the targets: the per-voxel CE,
+the rank masks (their argsorts and ``keep_n`` over the global voxels, as
+the JAX package's SPMD sort is) and DAST's selection scores are the
+global batch's, so every rank builds the same masks and feeds the same
+scores to the same rank queues, and the gates stay the same on every
+rank. DAST's noisy stream is sharded like SSL's unlabelled one
+(``train_batch_size_noise`` is global and must divide over the ranks;
+each host reads its manifest share).
 """
 from __future__ import annotations
 
@@ -84,6 +95,7 @@ class _SelectStep(ParadigmStep):
     (masks without gradient)."""
 
     def peers(self, batch, draws, remb_ratio):
+        """``batch`` with its targets global (``global_batch``)."""
         outs = self.student(batch['image'], draws.dropout(0))
         heads = [primary_head(o) for o in outs]
         y = batch['label_prob']
@@ -107,7 +119,7 @@ class CoTeachingStep(_SelectStep):
     its PEER kept."""
 
     def __call__(self, batches, draws, remb_ratio):
-        batch = batches[0]
+        batch = self.global_batch(batches[0])
         heads, (loss1, loss2), (mask1, mask2) = self.peers(batch, draws,
                                                            remb_ratio)
         loss = masked_mean(loss1, mask2) + masked_mean(loss2, mask1)
@@ -121,7 +133,7 @@ class TriNetStep(_SelectStep):
     peers' masks."""
 
     def __call__(self, batches, draws, remb_ratio):
-        batch = batches[0]
+        batch = self.global_batch(batches[0])
         heads, losses, masks = self.peers(batch, draws, remb_ratio)
         pair = [torch.maximum(masks[1], masks[2]),
                 torch.maximum(masks[0], masks[2]),
@@ -145,11 +157,14 @@ class DASTStep(ParadigmStep):
         self.on_scores = on_scores
 
     def __call__(self, batches, draws, w_dbc, w_st):
-        clean, noise = batches['clean'], batches['noise']
-        n0 = clean['image'].shape[0]
+        clean = self.global_batch(batches['clean'])
+        noise = self.global_batch(batches['noise'])
+        seg = (clean['image'].shape[0], noise['image'].shape[0])
+        n0 = seg[0] * (1 if self.mesh is None else self.mesh.size)
         y1 = noise['label_prob']
         b0, b1 = (primary_head(o) for o in self.student(
-            torch.cat([clean['image'], noise['image']]), draws.dropout(0)))
+            torch.cat([clean['image'], noise['image']]), draws.dropout(0),
+            seg))
         loss_sup = 0.5 * (
             self.loss_calculator({'prediction': b0[:n0],
                                   'ground_truth': clean['label_prob']})
@@ -241,6 +256,7 @@ class NLLDAST(BiNetAgent, NLLAgent):
     gates."""
 
     step_class = DASTStep
+    batch_size_keys = ('train_batch_size', 'train_batch_size_noise')
 
     def __init__(self, config: dict, stage: str, device):
         super().__init__(config, stage, device)
@@ -265,9 +281,10 @@ class NLLDAST(BiNetAgent, NLLAgent):
             modal_num=data_cfg.get('modal_num', 1), with_label=True,
             transform=self.build_transform('train'),
             cache_bytes=self.cache_bytes('train', workers),
-            transform_cache=data_cfg.get('transform_cache', True))
+            transform_cache=data_cfg.get('transform_cache', True),
+            host_shard=self.host_shard('train'))
         self.train_loader_noise = DataLoader(
-            dataset, batch_size=data_cfg['train_batch_size_noise'],
+            dataset, batch_size=self.host_batch_size('train_batch_size_noise'),
             shuffle=True, num_workers=workers, seed=self.random_seed + 200)
 
     def loaders(self):

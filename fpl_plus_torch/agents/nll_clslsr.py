@@ -30,6 +30,16 @@ its original geometry, after the chain's ``LabelConvert`` /
 dropout of volume i comes from a ``torch.Generator`` seeded from
 ``SeedSequence([random_seed, i])``, so its masks never equal the JAX
 package's threefry draws.
+
+Over a mesh (the test stage's, ``[testing]`` then ``[training]``
+``mesh_devices`` / ``gpus`` / ``multihost``; the JAX package's
+``agents/nll_clslsr.py:299-315,355-393``) every rank infers each volume
+through the window-sharded Inferer, so every rank holds the same
+predictions and computes the same noise mask; rank 0 alone writes the
+``slsr_conf/`` maps and the manifest, and a barrier follows, so that no
+rank reads them before they are written. With ``test_time_dropout`` each
+rank draws its windows' masks, so the maps differ from a one-rank run's in
+value, not in distribution, as the segmentation test stage's do.
 """
 from __future__ import annotations
 
@@ -195,10 +205,8 @@ class NLLCLSLSR(SegmentationAgent):
     NLLCLSLSR, nll_clslsr.py:48-147). ``[dataset] train_csv`` is the
     manifest audited, ``valid_transform`` the inference chain; ``[testing]``
     names the checkpoint (ckpt_mode 0-2), the window and TTA,
-    ``test_time_dropout`` and ``cl_type`` (default ``both``). It has no
-    sharded path yet (``NetRunAgent.data_parallel``)."""
-
-    data_parallel = False
+    ``test_time_dropout`` and ``cl_type`` (default ``both``); over a mesh
+    the windows are sharded (module docstring)."""
 
     def __init__(self, config: dict, device):
         super().__init__(config, 'test', device)
@@ -257,7 +265,8 @@ class NLLCLSLSR(SegmentationAgent):
             raise ValueError('CLSLSR inference uses a single checkpoint '
                              '(ckpt_mode 0/1/2)')
         module = self._loaded_module(ckpt_name)
-        inferer = Inferer(dict(cfg_test, output_mode='logits'), self.device)
+        inferer = Inferer(dict(cfg_test, output_mode='logits'), self.device,
+                          mesh=self.get_mesh())
         predictor = head_predictor(module, domain_label)
 
         label_paths = self._label_paths()
@@ -320,20 +329,22 @@ def run_get_confidence_map(config: dict, device) -> str:
     the CLSLSR agent over the train manifest, then the ``_clslsr.csv``
     retrain manifest (image, pixel_weight -> ``slsr_conf/<label basename>``,
     label), written with the ``csv`` module in the JAX package's pandas
-    columns and order. Returns the manifest path."""
-    NLLCLSLSR(config, device).run()
+    columns and order. Returns the manifest path. Over a mesh rank 0 writes
+    the maps and the manifest, and every rank returns after a barrier."""
+    agent = NLLCLSLSR(config, device)
+    agent.run()
     csv_file = config['dataset']['train_csv']
     train_cl_csv = csv_file.replace('.csv', '_clslsr.csv')
-    if not is_primary_host():
-        return train_cl_csv
-    with open(csv_file, newline='') as f:
-        rows = list(csv.DictReader(f))
-    with open(train_cl_csv, 'w', newline='') as f:
-        writer = csv.writer(f, lineterminator='\n')
-        writer.writerow(['image', 'pixel_weight', 'label'])
-        for r in rows:
-            writer.writerow([r['image'],
-                             'slsr_conf/' + r['label'].split('/')[-1],
-                             r['label']])
-    logging.info('wrote CLSLSR retrain manifest %s', train_cl_csv)
+    if is_primary_host():
+        with open(csv_file, newline='') as f:
+            rows = list(csv.DictReader(f))
+        with open(train_cl_csv, 'w', newline='') as f:
+            writer = csv.writer(f, lineterminator='\n')
+            writer.writerow(['image', 'pixel_weight', 'label'])
+            for r in rows:
+                writer.writerow([r['image'],
+                                 'slsr_conf/' + r['label'].split('/')[-1],
+                                 r['label']])
+        logging.info('wrote CLSLSR retrain manifest %s', train_cl_csv)
+    agent.barrier('clslsr-written')   # rank 0's maps and manifest settle
     return train_cl_csv

@@ -27,7 +27,21 @@ share on top of ``SegmentationAgent``, whose training loop they run:
   ``SeedSequence([random_seed, it, k, 1])``. Student forward 0, teacher
   forward 1, MC-dropout passes 2 .. T+1. They never equal the JAX
   package's threefry draws;
-* gradient accumulation raises ``ValueError``, as in the JAX package.
+* gradient accumulation raises ``ValueError``, as in the JAX package;
+* data parallelism (``parallel/mesh.py``, the segmentation agent's
+  training loop): each rank holds its rows of every stream (the
+  unlabelled batch, ``train_batch_size_unlab``, must divide over the ranks
+  as the labelled one does); a forward of both streams in one batch runs
+  under ``batch_segments``, so its dropout masks are the one-card masks'
+  rows of this rank, and every output is gathered in the one-card order
+  (``gather_segments``: all labelled rows, then all unlabelled rows), the
+  loss targets too (``_Step._global_targets``), and so is the teacher's
+  output; the input noise draws the global stream's and keeps the rank's
+  rows. So every loss, mask and metric is the global batch's, the ranks'
+  gradients sum to the one-card gradient, every rank takes the same
+  update, and the teacher, updated from the replicated student, stays the
+  same on every rank. A host value a step reads (USTM's rotation, DMPLS's
+  ``beta``) is rank 0's (``ParadigmStep.shared``).
 
 The SSL agents read ``[semi_supervised_learning]`` and a second train
 stream, the unlabelled manifest ``train_csv_unlab`` with
@@ -56,15 +70,24 @@ from fpl_plus_torch.losses.seg import EntropyLoss
 from fpl_plus_torch.models.common import resize_linear
 from fpl_plus_torch.models.multi_net import make_binet
 from fpl_plus_torch.models.registry import param_count
+from fpl_plus_torch.parallel.mesh import active_mesh, batch_segments
 from fpl_plus_torch.transforms.trans_dict import Compose, TransformDict
 from fpl_plus_torch.utils.ramps import get_rampup_ratio
 
 
 def noise_like(generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
-    """Teacher input noise: N(0, 0.1^2) per voxel, clipped to +-0.2."""
-    return torch.clamp(torch.randn(x.shape, generator=generator,
-                                   device=x.device, dtype=x.dtype) * 0.1,
-                       -0.2, 0.2)
+    """Teacher input noise: N(0, 0.1^2) per voxel, clipped to +-0.2.
+    Within a data-parallel step ``x`` is this rank's rows of a stream: the
+    generator draws the global stream's noise and the rank keeps its rows,
+    as ``models/common.py`` ``group_rand`` does."""
+    mesh = active_mesh()
+    n = x.shape[0]
+    rows = n if mesh is None else n * mesh.size
+    noise = torch.randn((rows,) + tuple(x.shape[1:]), generator=generator,
+                        device=x.device, dtype=x.dtype)
+    if mesh is not None:
+        noise = noise[mesh.rank * n:(mesh.rank + 1) * n]
+    return torch.clamp(noise * 0.1, -0.2, 0.2)
 
 
 def one_hot_argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -144,15 +167,50 @@ class ParadigmStep(_Step):
         self.teacher = teacher
         self.weighted = weighted
 
-    def student(self, x, generators):
-        """The train-mode domain-0 forward (f32 logits)."""
-        return self._forward(self._params(), x, 0, generators)
+    def student(self, x, generators, segments=None):
+        """The train-mode domain-0 forward (f32 logits) of ``x``, a batch
+        of consecutive ``segments`` (None: one); under a mesh ``x`` holds
+        this rank's rows of each and the output is the global batch's in
+        the one-card order."""
+        with batch_segments(segments):
+            out = self._forward(self._params(), x, 0, generators)
+        return self._gather(out, segments)
+
+    def shared(self, value: float) -> float:
+        """A host value of the step as rank 0 holds it (itself without a
+        mesh): every rank then computes alike and runs the same
+        collectives."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([float(value)], dtype=torch.float64,
+                         device=self.mesh.device)
+        return float(self.mesh.broadcast(t).item())
+
+    def global_batch(self, batch, image: bool = False):
+        """``batch`` with its loss targets (and, with ``image``, its image)
+        gathered to the global batch under a mesh; itself without one."""
+        out = self._global_targets(batch)
+        if image and self.mesh is not None:
+            out = dict(out, image=self.mesh.gather_rows(batch['image']))
+        return out
+
+    def ssl_inputs(self, batches):
+        """The labelled batch (its targets global), the labelled and
+        unlabelled images in one batch, the count of labelled rows in the
+        global batch and the two streams' row counts here."""
+        lab, unlab = batches['lab'], batches['unlab']
+        n0, n1 = lab['image'].shape[0], unlab['image'].shape[0]
+        ranks = 1 if self.mesh is None else self.mesh.size
+        return (self._global_targets(lab),
+                torch.cat([lab['image'], unlab['image']]), n0 * ranks,
+                (n0, n1))
 
     def teacher_head(self, x, generators) -> torch.Tensor:
         """The primary head of the teacher's train-mode forward, without
-        gradient; its batch-norm updates land on copies of the running
-        statistics (functional_call would otherwise update the student's
-        buffers in place)."""
+        gradient (gathered to the global batch under a mesh); its
+        batch-norm updates land on copies of the running statistics
+        (functional_call would otherwise update the student's buffers in
+        place)."""
         params = self.teacher.params
         if self.compute_dtype is not None:
             params = {k: v.to(self.compute_dtype) for k, v in params.items()}
@@ -162,7 +220,8 @@ class ParadigmStep(_Step):
         with torch.no_grad():
             out = functional_call(self.module, state, (x, 0),
                                   {'dropout_generators': generators})
-        return primary_head(out).float()
+            head = primary_head(out).float()
+            return head if self.mesh is None else self.mesh.gather_rows(head)
 
     def sup(self, prediction, batch) -> torch.Tensor:
         loss_input = {'prediction': prediction,
@@ -216,21 +275,13 @@ class UncertainTeacherStep(ParadigmStep):
         return torch.sum(mask * sq) / (2 * torch.sum(mask) + 1e-16)
 
 
-def ssl_inputs(batches):
-    """The labelled batch, the labelled and unlabelled images in one
-    batch, and the count of labelled rows."""
-    lab, unlab = batches['lab'], batches['unlab']
-    return lab, torch.cat([lab['image'], unlab['image']]), \
-        lab['image'].shape[0]
-
-
 class EntropyMinimizationStep(ParadigmStep):
     """ssl_em.py:16-109: the supervised loss of the labelled rows plus the
     ramped entropy of the whole batch."""
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
-        out = self.student(x, draws.dropout(0))
+        lab, x, n0, seg = self.ssl_inputs(batches)
+        out = self.student(x, draws.dropout(0), seg)
         loss_sup = self.sup(head_rows(out, slice(0, n0)), lab)
         loss_reg = EntropyLoss({})({'prediction': out})
         return self.finish(loss_sup + regular_w * loss_reg, loss_sup,
@@ -243,11 +294,11 @@ class MeanTeacherStep(ParadigmStep):
     softmax on the unlabelled rows (the teacher's input noised)."""
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
+        lab, x, n0, seg = self.ssl_inputs(batches)
         x1 = batches['unlab']['image']
         soft_ema = torch.softmax(self.teacher_head(
             x1 + noise_like(draws.noise(1), x1), draws.dropout(1)), 1)
-        primary = primary_head(self.student(x, draws.dropout(0)))
+        primary = primary_head(self.student(x, draws.dropout(0), seg))
         loss_sup = self.sup(primary[:n0], lab)
         loss_reg = torch.mean(torch.square(torch.softmax(primary[n0:], 1)
                                            - soft_ema))
@@ -260,10 +311,10 @@ class UAMTStep(UncertainTeacherStep):
     voxels where T noised MC-dropout passes of the teacher are certain."""
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
+        lab, x, n0, seg = self.ssl_inputs(batches)
         soft_ema, mask = self.teacher_and_mask(batches['unlab']['image'],
                                                draws, regular_w)
-        primary = primary_head(self.student(x, draws.dropout(0)))
+        primary = primary_head(self.student(x, draws.dropout(0), seg))
         loss_sup = self.sup(primary[:n0], lab)
         loss_reg = self.masked_mse(torch.softmax(primary[n0:], 1), soft_ema,
                                    mask)
@@ -289,8 +340,8 @@ class CCTStep(ParadigmStep):
                                        - target))
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
-        out = self.student(x, draws.dropout(0))
+        lab, x, n0, seg = self.ssl_inputs(batches)
+        out = self.student(x, draws.dropout(0), seg)
         main, aux = out[0], out[1:]
         loss_sup = self.sup(main[:n0], lab)
         target = torch.softmax(main[n0:].detach(), 1)
@@ -304,8 +355,8 @@ class CPSStep(ParadigmStep):
     labelled rows and by the other's argmax on the unlabelled rows."""
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
-        out1, out2 = self.student(x, draws.dropout(0))
+        lab, x, n0, seg = self.ssl_inputs(batches)
+        out1, out2 = self.student(x, draws.dropout(0), seg)
         o1, o2 = primary_head(out1), primary_head(out2)
         sup1, sup2 = self.sup(o1[:n0], lab), self.sup(o2[:n0], lab)
         pse1 = one_hot_argmax(o1[n0:].detach())
@@ -325,8 +376,8 @@ class URPCStep(ParadigmStep):
     mean on the unlabelled rows."""
 
     def __call__(self, batches, draws, regular_w):
-        lab, x, n0 = ssl_inputs(batches)
-        outs = self.student(x, draws.dropout(0))
+        lab, x, n0, seg = self.ssl_inputs(batches)
+        outs = self.student(x, draws.dropout(0), seg)
         loss_sup = self.sup([o[:n0] for o in outs], lab)
         softs = [torch.softmax(o[n0:], 1) for o in outs]
         spatial = softs[0].shape[2:]
@@ -355,8 +406,6 @@ class ParadigmAgent(SegmentationAgent):
     paradigm_section = ''
     step_class = None
     uses_teacher = False
-    # the paradigm steps have no data-parallel path yet (ROADMAP.md)
-    data_parallel = False
 
     def __init__(self, config: dict, stage: str, device):
         super().__init__(config, stage, device)
@@ -438,6 +487,7 @@ class SSLSegAgent(ParadigmAgent):
     (reference ssl_abstract.py:16-107)."""
 
     paradigm_section = 'semi_supervised_learning'
+    batch_size_keys = ('train_batch_size', 'train_batch_size_unlab')
 
     def __init__(self, config: dict, stage: str, device):
         super().__init__(config, stage, device)

@@ -16,6 +16,12 @@ in ``training_hyper``; both under the loaders' lock (``io/loader.py``
 ``host_random``), so neither lands inside an item's transforms. With the
 train loaders' worker processes (``num_workder > 0``) the items are seeded
 in the workers, so the draws no longer share the process RNG with them.
+
+Under a mesh (``agents/ssl.py``'s data parallelism) the supervised loss
+reads the gathered ``label_prob`` and scribble ``pixel_weight``, the
+regulariser the gathered batch with its image (MumfordShah and GatedCRF
+read the image), and USTM's ``k`` and DMPLS's ``beta`` are rank 0's draws,
+broadcast in the step, so that every rank rotates and mixes alike.
 """
 from __future__ import annotations
 
@@ -43,8 +49,8 @@ class RegularizedStep(ParadigmStep):
         self.reg_fn = reg_fn
 
     def __call__(self, batches, draws, regular_w):
-        batch = batches[0]
-        out = self.student(batch['image'], draws.dropout(0))
+        out = self.student(batches[0]['image'], draws.dropout(0))
+        batch = self.global_batch(batches[0], image=True)
         loss_sup = self.sup(out, batch)
         loss_reg = self.reg_fn(out, batch)
         return self.finish(loss_sup + regular_w * loss_reg, loss_sup,
@@ -64,7 +70,7 @@ class USTMStep(UncertainTeacherStep):
     softmax and the teacher's. ``batches = (batch, k)``."""
 
     def __call__(self, batches, draws, regular_w):
-        batch, k = batches[0], int(batches[1])
+        batch, k = self.global_batch(batches[0]), int(self.shared(batches[1]))
         x = batch['image']
         soft_ema, mask = self.teacher_and_mask(rot90_hw(x, k), draws,
                                                regular_w)
@@ -85,7 +91,7 @@ class DMPLSStep(ParadigmStep):
     dice = DiceLoss({})
 
     def __call__(self, batches, draws, regular_w, beta):
-        batch = batches[0]
+        batch, beta = self.global_batch(batches[0]), self.shared(beta)
         out1, out2 = self.student(batch['image'], draws.dropout(0))
         o1, o2 = primary_head(out1), primary_head(out2)
         loss_sup = 0.5 * (self.sup(o1, batch) + self.sup(o2, batch))

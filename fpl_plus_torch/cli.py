@@ -43,9 +43,11 @@ and wait for them; a rank that fails fails the run. Each rank joins the
 group before it picks its card, runs the stage and the auto test stage
 (on every rank when the test stage's mesh is the run's, on rank 0 alone
 when it asks for one device), rank 0 alone writes the log file and runs
-``eva_main``, and the group is closed at exit. Only the segmentation
-agent trains and infers over a mesh; the other agents raise
-``NotImplementedError`` before any rank starts.
+``eva_main``, and the group is closed at exit. The segmentation agent and
+the SSL, WSL and NLL agents (``main_ssl`` / ``main_wsl`` / ``main_nll``)
+train and infer over a mesh, and ``main_nll_clslsr`` infers over the test
+stage's mesh; the classification agent raises ``NotImplementedError``
+before any rank starts.
 
 ``main_eval_seg`` (``python -m fpl_plus_torch.metrics cfg``) runs the
 evaluation reports alone (the reference's ``pymic_eval_seg``) and
@@ -55,6 +57,7 @@ the classification metrics (``pymic_eval_cls``); they need no device.
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import sys
@@ -65,7 +68,7 @@ from fpl_plus_torch.agents.agent_abstract import NOT_DATA_PARALLEL
 from fpl_plus_torch.agents.agent_cls import ClassificationAgent
 from fpl_plus_torch.agents.agent_seg import SegmentationAgent
 from fpl_plus_torch.agents.nll import NLLMethodDict
-from fpl_plus_torch.agents.nll_clslsr import run_get_confidence_map
+from fpl_plus_torch.agents.nll_clslsr import NLLCLSLSR, run_get_confidence_map
 from fpl_plus_torch.agents.ssl import SSLMethodDict
 from fpl_plus_torch.agents.wsl import WSLMethodDict
 from fpl_plus_torch.config.parser import (logging_config, parse_config,
@@ -142,7 +145,15 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
     ``agent_of(config)`` gives, then the auto test stage and the reports;
     over the host's ranks when the stage's mesh needs several."""
     args = _parse(argv, prog)
-    dev_name = device if device is not None else args.device
+    return _launch(args, agent_of, device if device is not None
+                   else args.device, _stages)
+
+
+def _launch(args, agent_of, dev_name, stages) -> int:
+    """``stages(args, config, agent_class, device)`` for ``args.stage`` of
+    ``args.cfg``: in this process, or over the host's ranks when the
+    stage's mesh needs several. ``agent_of`` and ``stages`` must be
+    module-level (each spawned rank unpickles them)."""
     device_type = torch.device(dev_name or 'cuda').type
     config = synchronize_config(parse_config(args.cfg))
     ranks = local_ranks(config, args.stage, agent_of(config), device_type)
@@ -151,15 +162,17 @@ def _run(argv, prog: str, agent_of, device=None) -> int:
         coordinator = coordinator or 'localhost:{0}'.format(
             multihost.free_local_port())
         multihost.launch_local_ranks(
-            run_rank, (args, agent_of, dev_name, coordinator, ranks), ranks)
+            run_rank, (args, agent_of, dev_name, coordinator, ranks, stages),
+            ranks)
         return 0
-    return run_rank(0, args, agent_of, dev_name, coordinator, 1)
+    return run_rank(0, args, agent_of, dev_name, coordinator, 1, stages)
 
 
 def run_rank(local_rank: int, args, agent_of, dev_name, coordinator,
-             local_size: int) -> int:
+             local_size: int, stages=None) -> int:
     """One rank of the run (the whole run when it is alone): join the
-    group, pick the card, run the stages, close the group."""
+    group, pick the card, run the stages (default ``_stages``), close the
+    group."""
     config = synchronize_config(parse_config(args.cfg))
     device_type = torch.device(dev_name or 'cuda').type
     grouped = multihost.maybe_initialize_distributed(
@@ -168,7 +181,7 @@ def run_rank(local_rank: int, args, agent_of, dev_name, coordinator,
         dev = resolve_device('cuda:{0}'.format(local_rank)
                              if grouped and device_type == 'cuda'
                              else dev_name)
-        _stages(args, config, agent_of(config), dev)
+        (stages or _stages)(args, config, agent_of(config), dev)
     except BaseException:
         if grouped:
             multihost.finalize_distributed(ok=False)
@@ -221,14 +234,17 @@ def main(argv=None, device=None):
     return _run(argv, 'python -m fpl_plus_torch.cli', _task_agent, device)
 
 
+def _agent_of_method(section: str, key: str, registry: dict, config):
+    method = config[section][key]
+    if method not in registry:
+        raise ValueError('Undefined {0} method {1}'.format(section, method))
+    return registry[method]
+
+
 def _method_agent(section: str, key: str, registry: dict):
-    def agent_of(config):
-        method = config[section][key]
-        if method not in registry:
-            raise ValueError('Undefined {0} method {1}'.format(section,
-                                                               method))
-        return registry[method]
-    return agent_of
+    """``agent_of(config)``: the registry's agent of ``[section] key``
+    (picklable, for the spawned ranks)."""
+    return functools.partial(_agent_of_method, section, key, registry)
 
 
 def main_ssl(argv=None, device=None):
@@ -265,15 +281,24 @@ def main_nll_clslsr(argv=None, device=None):
     cfg = args.args[-1]
     if not os.path.isfile(cfg):
         raise ValueError('The config file does not exist: {0}'.format(cfg))
-    dev = resolve_device(device if device is not None else args.device)
-    config = synchronize_config(parse_config(cfg))
+    return _launch(argparse.Namespace(stage='test', cfg=cfg), _clslsr_agent,
+                   device if device is not None else args.device,
+                   _clslsr_stages)
+
+
+def _clslsr_agent(config):
+    return NLLCLSLSR
+
+
+def _clslsr_stages(args, config: dict, agent_class, dev) -> None:
+    """The CLSLSR stage of one rank: its log, then the maps and the
+    manifest (``run_get_confidence_map``)."""
     apply_matmul_precision(config, 'test')
     log_dir = config['training']['ckpt_save_dir']
     os.makedirs(log_dir, exist_ok=True)
     _setup_logging('{0}/log_clslsr.txt'.format(log_dir))
     logging_config(config)
     run_get_confidence_map(config, dev)
-    return 0
 
 
 PARADIGM_MAINS = {'ssl': main_ssl, 'wsl': main_wsl, 'nll': main_nll,

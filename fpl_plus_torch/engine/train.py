@@ -78,7 +78,7 @@ from torch.func import functional_call
 
 from fpl_plus_torch.engine.optim import count_update, set_scheduled_lr
 from fpl_plus_torch.losses.util import get_classwise_dice, reshape_to_2d
-from fpl_plus_torch.parallel.mesh import gather_rows
+from fpl_plus_torch.parallel.mesh import gather_segments
 
 Batch = Dict[str, torch.Tensor]
 Generators = Optional[List[torch.Generator]]
@@ -147,14 +147,16 @@ class _Step:
         return {k: self.mesh.gather_rows(v) if k in TARGETS else v
                 for k, v in batch.items()}
 
-    def _gather(self, out):
-        """The gathered global-batch prediction (each head); itself
+    def _gather(self, out, segments=None):
+        """The gathered global-batch prediction (each head, each peer's)
+        in the one-card order: of a batch of consecutive ``segments``
+        (``parallel/mesh.py`` ``gather_segments``; None: one); itself
         without a mesh."""
         if self.mesh is None:
             return out
         if isinstance(out, (list, tuple)):
-            return [gather_rows(o, self.mesh) for o in out]
-        return gather_rows(out, self.mesh)
+            return type(out)(self._gather(o, segments) for o in out)
+        return gather_segments(out, segments or (out.shape[0],), self.mesh)
 
     def _params(self):
         """bf16 copies of the parameters (None at f32: the module's own)."""

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fpl_plus_torch.parallel.mesh import active_mesh
+from fpl_plus_torch.parallel.mesh import active_mesh, active_segments
 
 
 class PReLU(nn.Module):
@@ -32,17 +32,33 @@ def group_rand(shape, generators, device, rows: bool = True
     group's rows: every generator draws the global batch's rows, as one
     card draws them, and the rank keeps its own slice of the concatenation
     (ranks hold contiguous slices of the global batch, in rank order).
-    Draws of one value per group (``rows`` False) are the same on every
-    rank."""
+    When the forward's batch is segmented (``batch_segments``: two streams
+    in one batch), each generator's draw keeps this rank's rows of each
+    segment; a batch folded to ``f`` rows per sample (a 2D net over depth
+    slices) has segments ``f`` times as long. Draws of one value per group
+    (``rows`` False) are the same on every rank."""
     mesh = active_mesh()
     if mesh is None or not rows:
         return torch.cat([torch.rand(tuple(shape), generator=g,
                                      device=device) for g in generators])
-    n_local = shape[0] * len(generators)
-    full = torch.cat([torch.rand((shape[0] * mesh.size,) + tuple(shape[1:]),
-                                 generator=g, device=device)
-                      for g in generators])
-    return full[mesh.rank * n_local:(mesh.rank + 1) * n_local]
+    segments = active_segments()
+    if segments is None:
+        n_local = shape[0] * len(generators)
+        full = torch.cat([torch.rand((shape[0] * mesh.size,)
+                                     + tuple(shape[1:]), generator=g,
+                                     device=device) for g in generators])
+        return full[mesh.rank * n_local:(mesh.rank + 1) * n_local]
+    if shape[0] % sum(segments):
+        raise ValueError('{0} rows do not fold the segments {1}'.format(
+            shape[0], list(segments)))
+    fold = shape[0] // sum(segments)
+    keep = mesh.segment_slices([fold * n for n in segments])
+    parts = []
+    for g in generators:
+        full = torch.rand((shape[0] * mesh.size,) + tuple(shape[1:]),
+                          generator=g, device=device)
+        parts.extend(full[s] for s in keep)
+    return torch.cat(parts)
 
 
 def grouped_dropout(x: torch.Tensor, p: float, generators=None

@@ -18,6 +18,12 @@ batch, and the global-batch quantities are collectives written out:
   which every rank computes alike), and so are the labels and weights; the
   per-rank parameter gradients then sum to the global one
   (``engine/train.py``);
+* a forward of two streams in one batch (the labelled and unlabelled rows
+  of a semi-supervised step, DAST's clean and noisy rows) holds this
+  rank's rows of each stream, one segment after the other: within
+  ``batch_segments(sizes)`` its dropout masks are the one-card masks' rows
+  of this rank in each segment, and ``gather_segments`` gathers its output
+  in the one-card order (each segment over the ranks, then the segments);
 * every collective is an ``all_reduce`` or a ``broadcast``: a gather is the
   all-reduce of a zero-filled buffer in which each rank fills its own
   slot, because gloo (the CPU backend, and the backend of two ranks that
@@ -76,11 +82,41 @@ class Mesh:
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """``[n, ...]`` on every rank -> ``[size * n, ...]``, rank r's rows
         at ``[r n, (r + 1) n)`` (all ranks hold the same ``n``)."""
-        n = t.shape[0]
-        out = torch.zeros((self.size * n,) + tuple(t.shape[1:]),
+        return self.gather_segments(t, (t.shape[0],))
+
+    def segment_slices(self, sizes: Sequence[int]):
+        """Where this rank's rows of consecutive segments of ``sizes`` rows
+        each (the same sizes on every rank) lie in the global batch of the
+        one-card order, whose segment s holds the ranks' rows of segment s
+        in rank order: one slice per segment."""
+        out, lo = [], 0
+        for n in sizes:
+            start = self.size * lo + self.rank * int(n)
+            out.append(slice(start, start + int(n)))
+            lo += int(n)
+        return out
+
+    def gather_segments(self, t: torch.Tensor,
+                        sizes: Sequence[int]) -> torch.Tensor:
+        """``t`` holds this rank's rows of consecutive segments of
+        ``sizes`` rows -> the global batch in the one-card order
+        (``segment_slices``) on every rank."""
+        if sum(int(n) for n in sizes) != t.shape[0]:
+            raise ValueError('segments {0} of a batch of {1}'.format(
+                list(sizes), t.shape[0]))
+        out = torch.zeros((self.size * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        out[self.rank * n:(self.rank + 1) * n] = t
+        lo = 0
+        for n, dst in zip(sizes, self.segment_slices(sizes)):
+            out[dst] = t[lo:lo + int(n)]
+            lo += int(n)
         return self.all_reduce(out)
+
+    def segment_rows(self, t: torch.Tensor,
+                     sizes: Sequence[int]) -> torch.Tensor:
+        """This rank's rows of each segment of the global ``t``: the
+        inverse of ``gather_segments``."""
+        return torch.cat([t[s] for s in self.segment_slices(sizes)])
 
     def share(self, n: int) -> Tuple[int, int]:
         """This rank's contiguous share ``[lo, hi)`` of ``n`` items: the
@@ -107,12 +143,32 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     return Mesh(None, device, *multihost.local_layout())
 
 
-_ACTIVE = {'mesh': None}
+_ACTIVE = {'mesh': None, 'segments': None}
 
 
 def active_mesh() -> Optional[Mesh]:
     """The mesh of the data-parallel train step running now, else None."""
     return _ACTIVE['mesh']
+
+
+def active_segments() -> Optional[Tuple[int, ...]]:
+    """The segment sizes of the batch forwarded now (``batch_segments``),
+    else None: the batch is one segment."""
+    return _ACTIVE['segments']
+
+
+@contextlib.contextmanager
+def batch_segments(sizes: Optional[Sequence[int]]):
+    """Within: the forward's batch is this rank's rows of consecutive
+    segments of ``sizes`` rows each (None: one segment), so that a
+    data-parallel step draws each segment's rows of the one-card masks."""
+    prev = _ACTIVE['segments']
+    _ACTIVE['segments'] = None if sizes is None else tuple(
+        int(n) for n in sizes)
+    try:
+        yield
+    finally:
+        _ACTIVE['segments'] = prev
 
 
 @contextlib.contextmanager
@@ -140,18 +196,17 @@ class _AllReduceSum(torch.autograd.Function):
         return ctx.mesh.all_reduce(grad.contiguous().clone()), None
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherSegments(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh, ctx.n = mesh, t.shape[0]
-        return mesh.gather_rows(t)
+    def forward(ctx, t, sizes, mesh):
+        ctx.mesh, ctx.sizes = mesh, sizes
+        return mesh.gather_segments(t, sizes)
 
     @staticmethod
     def backward(ctx, grad):
         # every rank evaluates the same loss on the same gathered rows, so
         # its gradient is already the global one: keep this rank's rows
-        lo = ctx.mesh.rank * ctx.n
-        return grad[lo:lo + ctx.n], None
+        return ctx.mesh.segment_rows(grad, ctx.sizes), None, None
 
 
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -162,7 +217,15 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Differentiable ``Mesh.gather_rows``: the gradient of the result
     flows back to this rank's rows."""
-    return _GatherRows.apply(t, mesh)
+    return gather_segments(t, (t.shape[0],), mesh)
+
+
+def gather_segments(t: torch.Tensor, sizes: Sequence[int],
+                    mesh: Mesh) -> torch.Tensor:
+    """Differentiable ``Mesh.gather_segments``: the global batch of a
+    forward of consecutive segments in the one-card order; the gradient of
+    the result flows back to this rank's rows of each segment."""
+    return _GatherSegments.apply(t, tuple(int(n) for n in sizes), mesh)
 
 
 def local_device_count(device_type: str = 'cuda') -> int:

@@ -1,7 +1,7 @@
 """PyTorch port, the scale-out surface in one process: the manifest shards
 and the mesh resolution against the JAX package's, the row split of a
 host batch, the global-batch dropout draws, the ranks' shares of a grid,
-the multihost gating, and the agents that refuse a mesh.
+the multihost gating, and the agent that refuses a mesh.
 
 No process group forms here (``tests/test_torch_port_dist.py`` starts the
 ranks): the draws and shares are checked with stand-in meshes that carry
@@ -230,32 +230,39 @@ def _agents():
 @pytest.mark.parametrize('scale', ['mesh', 'multihost'])
 def test_agents_without_a_data_parallel_step_refuse_a_mesh(clean_env, index,
                                                            scale):
-    """The SSL, WSL, NLL and classification agents raise under a mesh (or
-    a multi-process request) instead of training on one device."""
+    """The classification agent, which has no data-parallel step, raises
+    under a mesh (or a multi-process request) instead of training on one
+    device; the SSL, WSL and NLL agents are built under the same request,
+    to train over the mesh."""
     agent = _agents()[index]
     training = ({'mesh_devices': 2} if scale == 'mesh'
                 else {'multihost': True})
     config = {'dataset': {'task_type': 'seg'}, 'network': {},
               'training': training, 'testing': {}}
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        agent(config, 'train', 'cpu')
+    if agent.__name__ == 'ClassificationAgent':
+        with pytest.raises(NotImplementedError,
+                           match='ClassificationAgent has no data-parallel'):
+            agent(config, 'train', 'cpu')
+        return
+    built = agent(config, 'train', 'cpu')
+    assert built.data_parallel is True
 
 
 def test_clslsr_and_paradigm_cli_refuse_a_mesh(clean_env, tmp_path):
+    """The CLSLSR agent is built under a mesh request; the classification
+    CLI raises before any rank starts or any log is written."""
     from fpl_plus_torch.agents.nll_clslsr import NLLCLSLSR
-    from fpl_plus_torch.cli import main_ssl
+    from fpl_plus_torch.cli import main
     config = {'dataset': {}, 'network': {}, 'testing': {},
               'training': {'gpus': [0, 1]}}
-    with pytest.raises(NotImplementedError, match='NLLCLSLSR'):
-        NLLCLSLSR(config, 'cpu')
-    cfg = tmp_path / 'ssl.cfg'
-    cfg.write_text('[dataset]\ntask_type = seg\n[network]\nclass_num = 2\n'
+    assert NLLCLSLSR(config, 'cpu').data_parallel is True
+    cfg = tmp_path / 'cls.cfg'
+    cfg.write_text('[dataset]\ntask_type = cls\n[network]\nclass_num = 2\n'
                    '[training]\nmesh_devices = 2\nckpt_save_dir = {0}\n'
-                   '[testing]\nckpt_mode = 0\n'
-                   '[semi_supervised_learning]\nssl_method = MeanTeacher\n'
-                   .format(tmp_path))
-    with pytest.raises(NotImplementedError, match='SSLMeanTeacher'):
-        main_ssl(['train', str(cfg)], device='cpu')
+                   '[testing]\nckpt_mode = 0\n'.format(tmp_path))
+    with pytest.raises(NotImplementedError,
+                       match='ClassificationAgent has no data-parallel'):
+        main(['train', str(cfg)], device='cpu')
     assert not os.path.exists(tmp_path / 'log_train.txt')
 
 

@@ -5,7 +5,7 @@
 reads ``WORKDIR/cases.pt`` (a list of case dicts), starts RANKS gloo
 ranks on the CPU through ``fpl_plus_torch.parallel.multihost``, runs every
 case over the ranks' mesh and has rank 0 write ``WORKDIR/results.pt``
-(one result per case). ``run_case(case, None)`` runs a case in one
+(one result per case), rank r > 0 ``WORKDIR/results.rank{r}.pt``. ``run_case(case, None)`` runs a case in one
 process, the reference the tests hold the ranks to. It imports
 ``fpl_plus_torch`` and nothing else of the repo.
 
@@ -23,7 +23,20 @@ Case kinds:
   ``volume`` ``[1, C, *img]``, ``volumes`` ``[N, C, *img]``, ``passes``
   and ``pass_seeds``. Result: ``run`` logits and labels, ``run_batch``
   labels, ``run_passes`` logits, the ``run_fpl_uncertainty`` pair and,
-  over a mesh, ``sharded_sliding_window``'s output and counter.
+  over a mesh, ``sharded_sliding_window``'s output and counter;
+* ``'paradigm'``: an SSL, WSL or NLL method's step (``paradigm`` 'ssl',
+  'wsl' or 'nll', ``method``, ``config`` its sections, ``state`` the
+  state dict of its network, ``peers`` 1, 2 or 3 networks), ``batches``
+  (per step, the method's batch structure of numpy arrays holding the
+  global batch; USTM's rotation rides as the tuple's last entry), ``its``
+  (each step's iteration: its ramp and draws), ``hyper`` (per step,
+  values that replace the agent's, e.g. DMPLS's ``beta``) and
+  ``no_noise`` (the teacher's input noise zeroed). Over a mesh a rank
+  r > 0 first skews its host values (``k + r``, ``beta + r / 4``): the
+  step must take rank 0's. Result: each step's metrics, the first step's
+  gradients, the final state dict, the teacher's parameters, the
+  small-loss masks with the values and counts they were built from, and
+  DAST's gates after each step.
 """
 import os
 import sys
@@ -31,12 +44,16 @@ import sys
 import numpy as np
 import torch
 
+from fpl_plus_torch.agents import nll as port_nll
+from fpl_plus_torch.agents import ssl as port_ssl
+from fpl_plus_torch.agents import wsl as port_wsl
 from fpl_plus_torch.engine.infer import Inferer, PassFold, window_grid
 from fpl_plus_torch.engine.optim import create_lr_schedule, create_optimizer
 from fpl_plus_torch.engine.train import (AlternatingTrainStep,
                                          DiscriminatorStep,
                                          DualConsistencyStep, JointTrainStep)
 from fpl_plus_torch.losses import create_loss_calculator
+from fpl_plus_torch.models.multi_net import MultiNet
 from fpl_plus_torch.models.registry import create_network
 from fpl_plus_torch.models.unet2d5_dsbn import Dis
 from fpl_plus_torch.parallel import (make_mesh, make_sharded_train_step,
@@ -45,6 +62,8 @@ from fpl_plus_torch.parallel import (make_mesh, make_sharded_train_step,
 from fpl_plus_torch.parallel import multihost
 
 STEP_KINDS = ('joint', 'alternating', 'dual_consistency', 'dis')
+METHODS = {'ssl': port_ssl.SSLMethodDict, 'wsl': port_wsl.WSLMethodDict,
+           'nll': port_nll.NLLMethodDict}
 
 
 def _tensors(tree):
@@ -159,12 +178,81 @@ def run_infer_case(case, mesh):
     return out
 
 
+def _skewed(batches, hyper, rank):
+    """Rank ``rank``'s own host values: a rotation ``k`` riding last in a
+    batch tuple turned by ``rank``, ``beta`` moved by ``rank / 4``."""
+    if isinstance(batches, tuple) and isinstance(batches[-1], int):
+        batches = batches[:-1] + ((batches[-1] + rank) % 4,)
+    if 'beta' in hyper:
+        hyper = dict(hyper, beta=hyper['beta'] + rank / 4)
+    return batches, hyper
+
+
+def run_paradigm_case(case, mesh):
+    cfg = case['config']
+    agent = METHODS[case['paradigm']][case['method']](cfg, 'train', 'cpu')
+    peers = case.get('peers', 1)
+    net = (create_network(cfg['network']) if peers == 1
+           else MultiNet(cfg['network'], peers))
+    net.load_state_dict(case['state'], strict=True)
+    agent.module = net.train()
+    if mesh is not None:
+        replicate(net, mesh)
+    step = agent._build_step(create_optimizer(cfg['training'],
+                                              net.parameters()), None)
+    if mesh is not None:
+        step = make_sharded_train_step(step, mesh)
+    masks, gates = [], []
+    real_mask = port_nll.keep_smallest_mask
+    real_noise = port_ssl.noise_like
+
+    def recording(values, keep_n):
+        mask = real_mask(values, keep_n)
+        masks.append({'mask': mask.numpy(), 'values': values.numpy(),
+                      'keep_n': keep_n})
+        return mask
+
+    port_nll.keep_smallest_mask = recording
+    if case.get('no_noise'):
+        port_ssl.noise_like = port_wsl.noise_like = \
+            lambda gen, x: torch.zeros_like(x)
+    metrics, grads = [], None
+    extra = case.get('hyper') or [{}] * len(case['its'])
+    try:
+        for i, (it, step_batches) in enumerate(zip(case['its'],
+                                                   case['batches'])):
+            batches = _tensors(step_batches)
+            hyper = dict(agent.training_hyper(it), **extra[i])
+            if mesh is not None:
+                batches = shard_batch(batches, mesh)
+                batches, hyper = _skewed(batches, hyper, mesh.rank)
+            m = step(batches, agent._step_generators(it), **hyper)
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            gates.append(dict(agent.gates) if getattr(agent, 'gates', None)
+                         else None)
+            if i == 0:
+                grads = {k: p.grad.detach().clone()
+                         for k, p in net.named_parameters()}
+    finally:
+        port_nll.keep_smallest_mask = real_mask
+        port_ssl.noise_like = port_wsl.noise_like = real_noise
+    teacher = agent.teacher
+    return {'metrics': metrics, 'grads': grads,
+            'state': {k: v.detach().clone()
+                      for k, v in net.state_dict().items()},
+            'teacher': None if teacher is None else {
+                k: v.clone() for k, v in teacher.params.items()},
+            'masks': masks, 'gates': gates}
+
+
 def run_case(case, mesh=None):
     """One case over ``mesh`` (None: in this process alone)."""
     if case['kind'] in STEP_KINDS:
         return run_step_case(case, mesh)
     if case['kind'] == 'infer':
         return run_infer_case(case, mesh)
+    if case['kind'] == 'paradigm':
+        return run_paradigm_case(case, mesh)
     raise ValueError('unknown case kind {0!r}'.format(case['kind']))
 
 
@@ -175,8 +263,9 @@ def _rank(local_rank, workdir, ranks, coordinator):
     mesh = make_mesh(ranks, 'cpu')
     cases = torch.load(os.path.join(workdir, 'cases.pt'), weights_only=False)
     results = [run_case(case, mesh) for case in cases]
-    if mesh.rank == 0:
-        torch.save(results, os.path.join(workdir, 'results.pt'))
+    torch.save(results, os.path.join(workdir, 'results.pt' if mesh.rank == 0
+                                     else 'results.rank{0}.pt'.format(
+                                         mesh.rank)))
     multihost.finalize_distributed()
 
 
