@@ -202,10 +202,20 @@ then runs, each phase failing the script on any error:
     scribbles, ``main_nll train`` of DAST and of TriNet (2 iterations, a
     validation, the auto test stage each), and ``main_nll_clslsr`` (its
     maps against phase 25's): rc 0, the barriers through NCCL, the group
-    closed, launches equal to 18 / 36 / 54 x the eval forwards.
+    closed, launches equal to 18 / 36 / 54 x the eval forwards;
+34. profiling on phase 13's workspace: the generator's ``cli train`` (4
+    iterations, a validation every 2) with ``[training] profile_dir``
+    writes one trace holding exactly 2 ``train_step`` spans on the device
+    lane, no validation span and no DSBN+PReLU kernel; the f32 ``cli
+    test`` of the phase-4 volumes with ``[testing] profile_dir`` writes one
+    trace holding one ``infer_run`` span per volume and as many DSBN+PReLU
+    kernel events as launches counted, and labels equal to phase 4's; the
+    spans' device time, the trace sizes, the step call under the profiler
+    beside phase 12, and ``traced_device_ms`` of one ``Inferer.run``
+    beside CUDA events.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33) sets the
-launch counter to 0 just before it and reads it just after. Then it prints
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33, 34) sets
+the launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
 non-zero and prints no result.
@@ -4420,6 +4430,228 @@ def paradigm_nccl_phase(root, dev, fwd_per_volume):
     return results
 
 
+# -- phase 34: [training] / [testing] profile_dir under torch.profiler ------
+PROFILE_REPS = 3                 # traced_device_ms repetitions of Inferer.run
+PROFILE_STEPS = 6                # phase 12's step: each turn's step count
+KERNEL_EVENT = 'dsbn_prelu_kernel'   # the Triton kernel's name in a trace
+
+
+def one_trace(trace_dir):
+    files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    check(len(files) == 1 and files[0].endswith('.pt.trace.json.gz'),
+          'trace files in {0}: {1}'.format(trace_dir, files))
+    return os.path.join(trace_dir, files[0])
+
+
+def kernel_events(events):
+    return sum(1 for e in events if e.get('ph') == 'X'
+               and e.get('cat') == 'kernel' and KERNEL_EVENT in e['name'])
+
+
+def timed_steps(step, batches, gens, n, sink):
+    """``n`` calls of ``step`` on ``batches``, each timed by CUDA events
+    into ``sink``, as phase 12 times them."""
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batches, [[gens[0]], [gens[1]]])
+        end.record()
+        end.synchronize()
+        sink.append(start.elapsed_time(end))
+
+
+def profile_phase(root, dev, serving, names, timed, train, fwd_per_volume):
+    """(34) ``[training]`` and ``[testing] profile_dir`` at full width on
+    phase 13's workspace: the generator's ``cli train`` (4 iterations, a
+    validation every 2, items in the main process) traces its first 2
+    steps and no validation; the f32 ``cli test`` of the phase-4 volumes
+    traces its volume loop, with labels equal to phase 4's; then
+    ``traced_device_ms`` of one ``Inferer.run``, and phase 12's f32 step
+    without, with and again without the profiler (CUPTI's cost)."""
+    import fpl_plus_torch.agents.agent_seg as agent_seg
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer
+    from fpl_plus_torch.engine.train import JointTrainStep
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.utils import trace_metrics as tm
+    t_phase = time.perf_counter()
+    out = {}
+
+    train_dir = os.path.join(root, 'trace_train')
+    cfg = train_cfg(root, 'profile', start=0, stop=4, ckpt='profile',
+                    extra='profile_dir = ' + train_dir)
+    step_ms, stop_s = [], []
+    with timed_method(JointTrainStep, '__call__', step_ms), \
+            timed_function(agent_seg, 'stop_trace', stop_s), \
+            counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['train', cfg])
+        launches = dsbn_prelu.launches
+    check(rc == 0, 'profiled train stage rc {0}'.format(rc))
+    n_eval = (2 + N_VOLUMES) * 4 // 2 + N_VOLUMES
+    check(forwards[0] == n_eval * fwd_per_volume and
+          launches == 18 * forwards[0],
+          '{0} kernel launches for {1} eval forwards, expected {2}'.format(
+              launches, forwards[0], n_eval * fwd_per_volume))
+    check(len(step_ms) == 4 and len(stop_s) == 1,
+          '{0} steps, {1} trace stops'.format(len(step_ms), len(stop_s)))
+    path = one_trace(train_dir)
+    events = tm.trace_events(path)
+    spans = tm.module_events_us(path)
+    host = [e['name'] for e in events
+            if e.get('ph') == 'X' and e.get('cat') == tm.HOST_LANE]
+    # torch's own ranges (Optimizer.step#Adam.step, ...) may sit inside
+    check(len(spans.get('train_step', [])) == 2 and not [
+        k for k in spans if k == 'validation_forward'
+        or k.startswith('infer_')], 'train trace device spans {0}'.format(
+            {k: len(v) for k, v in spans.items()}))
+    check(host.count('train_step') == 2 and 'validation_forward' not in host,
+          'train trace host spans {0}'.format(sorted(set(host))))
+    check(kernel_events(events) == 0, 'the train trace holds {0} DSBN+PReLU '
+          'kernels'.format(kernel_events(events)))
+    out['train'] = {
+        'launches': launches, 'span_us': spans['train_step'],
+        'busy_us': tm.device_busy_us(path),
+        'kernel_busy_us': tm.kernel_busy_us(path),
+        'bytes': os.path.getsize(path), 'events': len(events),
+        'step_ms': step_ms, 'stop_s': stop_s[0]}
+
+    test_dir = os.path.join(root, 'trace_test')
+    cfg = write_cfg(root, 'profile_test', extra='profile_dir = ' + test_dir)
+    vol_ms, stop_s = [], []
+    with timed_method(Inferer, 'run', vol_ms), \
+            timed_function(agent_seg, 'stop_trace', stop_s), \
+            counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        rc = cli.main(['test', cfg])
+        launches = dsbn_prelu.launches
+    check(rc == 0, 'profiled test stage rc {0}'.format(rc))
+    check(forwards[0] == N_VOLUMES * fwd_per_volume
+          and launches == 18 * forwards[0],
+          '{0} kernel launches for {1} forwards'.format(launches,
+                                                        forwards[0]))
+    path = one_trace(test_dir)
+    events = tm.trace_events(path)
+    spans = tm.module_events_us(path)
+    check(len(spans.get('infer_run', [])) == N_VOLUMES and not [
+        k for k in spans if k in ('train_step', 'validation_forward')],
+          'test trace device spans {0}'.format(
+              {k: len(v) for k, v in spans.items()}))
+    check(kernel_events(events) == launches,
+          '{0} DSBN+PReLU kernels in the test trace, {1} launches'.format(
+              kernel_events(events), launches))
+    same = []
+    for name, want in zip(names,
+                          serving['float32']['labels']):
+        got = load_image_as_nd_array(os.path.join(
+            root, 'out_profile_test', 'gen_target_test',
+            os.path.basename(name)))['data_array']
+        same.append(bool(np.array_equal(got, want)))
+    check(all(same), 'profiled labels against phase 4: {0}'.format(same))
+    out['test'] = {
+        'launches': launches, 'span_us': spans['infer_run'],
+        'busy_us': tm.device_busy_us(path),
+        'kernel_busy_us': tm.kernel_busy_us(path),
+        'bytes': os.path.getsize(path), 'events': len(events),
+        'vol_ms': vol_ms, 'stop_s': stop_s[0]}
+
+    # one Inferer.run of a phase-4 volume: the trace's device ms against
+    # CUDA events (not counted: a measurement beside the main path)
+    # (phase 3's weights, saved by phase 4)
+    net = create_network(NET_CFG)
+    net.load_state_dict(torch.load(
+        os.path.join(root, 'model', 'gen', 'gen_100.pt'),
+        map_location='cpu', weights_only=False)['model_state_dict'])
+    predictor = agent_seg.head_predictor(
+        copy.deepcopy(net).to(dev).eval(), DOMAIN)
+    inferer = Inferer({'sliding_window_enable': True,
+                       'sliding_window_size': WINDOW,
+                       'sliding_window_stride': WINDOW, 'tta_mode': 1,
+                       'patch_chunk': PATCH_CHUNK, 'output_mode': 'label'},
+                      dev)
+    vol = load_image_as_nd_array(os.path.join(root, names[0]))[
+        'data_array'].astype(np.float32)
+    vol = ((vol - vol.mean()) / vol.std())[None]    # NormalizeWithMeanStd
+    run = functools.partial(inferer.run, predictor, vol)
+    out['traced_ms'] = tm.traced_device_ms(run, PROFILE_REPS, 'infer_volume')
+    out['event_ms'] = cuda_ms(run, reps=PROFILE_REPS)
+    check(out['traced_ms'] is not None, 'traced_device_ms found no device '
+          'lane on the card')
+    from fpl_plus_torch.utils.precision import resolve_dtype
+    step = make_step(net.to(dev), resolve_dtype('float32'))
+    gen = torch.Generator().manual_seed(SEED + 6)
+    batches = [train_inputs(gen, TRAIN_BATCH, dev) for _ in range(2)]
+    gens = [torch.Generator(dev).manual_seed(SEED + 340 + i)
+            for i in range(2)]
+    plain, profiled = [], []
+    timed_steps(step, batches, gens, TRAIN_WARMUP, [])
+    timed_steps(step, batches, gens, PROFILE_STEPS, plain)
+    out['step_traced_ms'] = tm.traced_device_ms(
+        functools.partial(timed_steps, step, batches, gens, 1, profiled),
+        PROFILE_STEPS, 'train_step')
+    timed_steps(step, batches, gens, PROFILE_STEPS, plain)
+    out['step_plain_ms'], out['step_profiled_ms'] = plain, profiled
+    del step, batches
+    torch.cuda.empty_cache()
+    out['wall_s'] = time.perf_counter() - t_phase
+    t, v = out['train'], out['test']
+    unprofiled = float(np.median(t['step_ms'][2:]))
+    print('profile (phase 34) train: trace {0} B gzipped ({1} events), 2 '
+          'train_step spans on the device lane {2} us (busy {3:.1f} us over '
+          'the trace, {4:.1f} us per step; kernels, copies and fills '
+          '{5:.1f} us, {6:.2%} of the span union), no validation span, no '
+          'DSBN+PReLU kernel; step call (CUDA events) profiled {7} ms, '
+          'unprofiled steps 3-4 {8} ms (median {9:.2f}), phase 12 median '
+          '{10:.2f} ms, phase 13 {11} ms: profiled step 2 at {12:+.2%} of '
+          'steps 3-4, {13:+.2%} of phase 12; stop and write {14:.2f} s; {15} '
+          'launches ({16} eval forwards after the trace)'.format(
+              t['bytes'], t['events'], ['{0:.1f}'.format(x)
+                                        for x in t['span_us']],
+              t['busy_us'], t['busy_us'] / 2, t['kernel_busy_us'],
+              t['kernel_busy_us'] / t['busy_us'],
+              ['{0:.2f}'.format(x) for x in t['step_ms'][:2]],
+              ['{0:.2f}'.format(x) for x in t['step_ms'][2:]], unprofiled,
+              timed['float32']['ms'],
+              ['{0:.1f}'.format(x) for x in train['gen']['step_ms']],
+              t['step_ms'][1] / unprofiled - 1,
+              t['step_ms'][1] / timed['float32']['ms'] - 1, t['stop_s'],
+              t['launches'], t['launches'] // 18))
+    print('profile (phase 34) test: trace {0} B gzipped ({1} events), {2} '
+          'infer_run spans {3} us (busy {4:.1f} us, {5:.1f} us per volume; '
+          'kernels, copies and fills {6:.1f} us, {7:.2%} of it), {8} '
+          'DSBN+PReLU kernel events = {9} launches; Inferer.run (CUDA '
+          'events, profiled) {10} ms, phase 4 {11} ms; labels equal to '
+          'phase 4 {12}; stop and write {13:.2f} s'.format(
+              v['bytes'], v['events'], N_VOLUMES,
+              ['{0:.1f}'.format(x) for x in v['span_us']], v['busy_us'],
+              v['busy_us'] / N_VOLUMES, v['kernel_busy_us'],
+              v['kernel_busy_us'] / v['busy_us'], v['launches'],
+              v['launches'], ['{0:.2f}'.format(x) for x in v['vol_ms']],
+              ['{0:.2f}'.format(x) for x in serving['float32']['vol_ms']],
+              same, v['stop_s']))
+    print('profile (phase 34) Inferer.run of one phase-4 volume: '
+          'traced_device_ms {0:.3f} ms per call over {1}, CUDA events '
+          '{2:.3f} ms, phase 4 median {3:.2f} ms'.format(
+              out['traced_ms'], PROFILE_REPS, out['event_ms'],
+              float(np.median(serving['float32']['vol_ms']))))
+    p_ms = float(np.median(plain))
+    q_ms = float(np.median(profiled))
+    print('profile (phase 34) phase 12 f32 step (CUDA events, {0} each): '
+          'without the profiler {1} ms (median {2:.2f}), under it {3} ms '
+          '(median {4:.2f}, {5:+.2%}; phase 12 median {6:.2f} ms, '
+          '{7:+.2%}); traced_device_ms {8:.3f} ms per step; phase wall '
+          '{9:.1f} s'.format(
+              PROFILE_STEPS, ['{0:.2f}'.format(x) for x in plain], p_ms,
+              ['{0:.2f}'.format(x) for x in profiled], q_ms, q_ms / p_ms - 1,
+              timed['float32']['ms'], q_ms / timed['float32']['ms'] - 1,
+              out['step_traced_ms'], out['wall_s']))
+    out['launches'] = t['launches'] + v['launches']
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -4483,6 +4715,8 @@ def main():
         nccl = nccl_world1_phase(dev)
         paradigm_dist = paradigm_dist_phase(dev)
         paradigm_nccl = paradigm_nccl_phase(ws, dev, fwd_per_volume)
+        profile = profile_phase(ws, dev, serving, names, timed, train,
+                                fwd_per_volume)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
@@ -4581,7 +4815,8 @@ def main():
                      + tools['launches'] + converter['launches']
                      + scale_out['launches'] + multihost_cli['launches']
                      + nccl['launches']
-                     + sum(r['launches'] for r in paradigm_nccl.values())),
+                     + sum(r['launches'] for r in paradigm_nccl.values())
+                     + profile['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -4680,6 +4915,24 @@ def main():
                                    for t, r in paradigm_nccl.items()},
         'paradigm_nccl_step_ms': {t: r['step_ms']
                                   for t, r in paradigm_nccl.items()},
+        'profile_launches': {k: profile[k]['launches']
+                             for k in ('train', 'test')},
+        'profile_span_us': {k: profile[k]['span_us']
+                            for k in ('train', 'test')},
+        'profile_busy_us': {k: profile[k]['busy_us']
+                            for k in ('train', 'test')},
+        'profile_kernel_busy_us': {k: profile[k]['kernel_busy_us']
+                                   for k in ('train', 'test')},
+        'profile_trace_bytes': {k: profile[k]['bytes']
+                                for k in ('train', 'test')},
+        'profile_step_ms': profile['train']['step_ms'],
+        'profile_volume_ms': profile['test']['vol_ms'],
+        'profile_traced_ms': profile['traced_ms'],
+        'profile_event_ms': profile['event_ms'],
+        'profile_step_plain_ms': profile['step_plain_ms'],
+        'profile_step_profiled_ms': profile['step_profiled_ms'],
+        'profile_step_traced_ms': profile['step_traced_ms'],
+        'profile_wall_s': profile['wall_s'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

@@ -88,6 +88,16 @@ reaches the same labels; only global rank 0 writes checkpoints, pointers,
 scalars, predictions and the FPL list, and barriers separate its writes
 from the other ranks' reads (after the train stage's pointers, before the
 test stage resolves its checkpoint).
+
+Profiling (the JAX package's ``agents/agent_seg.py:548-550,618-621`` and
+``:845-847,1050-1051``; ``utils/trace_metrics.py``): ``[training]
+profile_dir`` traces the train loop from before its batch thread starts to
+the end of the first block's ``iter_valid`` iterations and scalars, before
+the first validation; ``[testing] profile_dir`` traces the test stage's
+volume loop (not ``ckpt_mode = 3``). The step calls run inside the spans
+``train_step`` and ``dis_step``, each validation volume's forward inside
+``validation_forward``, and the Inferer's entries inside their own
+(``infer_run``, ...). Under a mesh each rank writes its own trace.
 """
 from __future__ import annotations
 
@@ -118,11 +128,12 @@ from fpl_plus_torch.models.registry import create_network, param_count
 from fpl_plus_torch.models.unet2d5_dsbn import Dis
 from fpl_plus_torch.parallel import (make_sharded_train_step, replicate,
                                      shard_batch)
-from fpl_plus_torch.parallel.multihost import is_primary_host
+from fpl_plus_torch.parallel.multihost import is_primary_host, process_info
 from fpl_plus_torch.utils.image_process import convert_label
 from fpl_plus_torch.utils.post_process import PostProcessDict
 from fpl_plus_torch.utils.precision import cast_infer_module, resolve_dtype
 from fpl_plus_torch.utils.scalar_writer import ScalarWriter
+from fpl_plus_torch.utils.trace_metrics import span, start_trace, stop_trace
 
 FPL_PASSES = 6
 DIS_LR, DIS_BETAS = 1e-4, (0.5, 0.999)
@@ -488,6 +499,10 @@ class SegmentationAgent(NetRunAgent):
         class_num = self.config['network']['class_num']
         writer = ScalarWriter(ckpt_dir)
         ckpt_writer = ckpt_lib.CheckpointWriter()
+        # the first block's iterations, not its validation (JAX :618-622)
+        profile_dir = cfg_t.get('profile_dir', None)
+        if profile_dir:
+            start_trace(profile_dir, self.device, self._trace_rank())
         batches = prefetch_iter(self._train_batches(), depth=2)
         glob_it = iter_start
         module.train()
@@ -506,9 +521,12 @@ class SegmentationAgent(NetRunAgent):
                         host = shard_batch(host, mesh)
                     dev = _to_device(host, self.device)
                     hyper = self.training_hyper(it)
-                    metrics = step(dev, self._step_generators(it), **hyper)
+                    with span('train_step'):
+                        metrics = step(dev, self._step_generators(it),
+                                       **hyper)
                     if dis_step is not None:
-                        metrics.update(dis_step(dev))
+                        with span('dis_step'):
+                            metrics.update(dis_step(dev))
                     for k, v in list(metrics.items()) + list(hyper.items()):
                         acc.setdefault(k, []).append(v)
                 train_scalars = {
@@ -520,6 +538,9 @@ class SegmentationAgent(NetRunAgent):
                 train_scalars['avg_dice'] = float(cls_dice.mean())
                 train_scalars['class_dice'] = cls_dice
                 t1 = time.time()
+                if profile_dir:
+                    stop_trace()
+                    profile_dir = None
                 valid_scalars = self.validation()
                 t2 = time.time()
                 glob_it = block_start + iter_valid
@@ -575,12 +596,21 @@ class SegmentationAgent(NetRunAgent):
             except Exception:
                 logging.exception('checkpoint writer close failed during '
                                   'unwind')
+            if profile_dir:       # the first block raised
+                stop_trace()
         ckpt_lib.write_best_pointer(ckpt_dir, prefix, max_val_it)
         # the test stage's readers resolve pointers only after rank 0
         # wrote them
         self.barrier('train-ckpt-written')
         logging.info('The best performing iter is %d, valid dice %s',
                      max_val_it, max_val_dice)
+
+    @staticmethod
+    def _trace_rank():
+        """The global rank, for the trace file's name, in a run of several
+        processes; None in one process."""
+        rank, world = process_info()[:2]
+        return rank if world > 1 else None
 
     def _write_scalars(self, writer, train_scalars, valid_scalars, lr_value,
                        glob_it, class_num):
@@ -634,8 +664,9 @@ class SegmentationAgent(NetRunAgent):
                     label_prob = torch.from_numpy(np.asarray(
                         data['label_prob'], np.float32)).to(self.device)
                     for i in range(images.shape[0]):
-                        pred = self.inferer.run_logits(predictor,
-                                                       images[i:i + 1])
+                        with span('validation_forward'):
+                            pred = self.inferer.run_logits(predictor,
+                                                           images[i:i + 1])
                         with torch.inference_mode():
                             y = label_prob[i:i + 1]
                             losses.append(self._valid_loss(
@@ -749,59 +780,67 @@ class SegmentationAgent(NetRunAgent):
 
         infer_times, uncertainty = [], {}
         volume_index = 0
-        for batch_data in prefetch_iter(self.test_loader):
-            samples = list(_split_batch(batch_data))
-            if len(samples) > 1 and not tt_dropout:
-                # batched serving: a collated batch is same-shape, so its
-                # volumes share one sliding window on the device-label path
-                images = np.asarray(batch_data['image'], np.float32)
-                margins = [margins_of(d, images.ndim - 2) for d in samples]
-                if all(m is not None for m in margins):
+        # the volume loop (JAX :845-847,1050-1051)
+        profile_dir = cfg_test.get('profile_dir', None)
+        if profile_dir:
+            start_trace(profile_dir, self.device, self._trace_rank())
+        try:
+            for batch_data in prefetch_iter(self.test_loader):
+                samples = list(_split_batch(batch_data))
+                if len(samples) > 1 and not tt_dropout:
+                    # batched serving: a collated batch is same-shape, so its
+                    # volumes share one sliding window on the device-label path
+                    images = np.asarray(batch_data['image'], np.float32)
+                    margins = [margins_of(d, images.ndim - 2) for d in samples]
+                    if all(m is not None for m in margins):
+                        t0 = time.time()
+                        labels = label_inf.run_batch(predictor, images)
+                        dt = (time.time() - t0) / len(samples)
+                        for i, (data, m) in enumerate(zip(samples, margins)):
+                            data['predict_label'] = _crop(labels[i:i + 1], m)
+                            self.save_outputs(data)
+                        infer_times.extend([dt] * len(samples))
+                        volume_index += len(samples)
+                        continue
+                for data in samples:
+                    images = np.asarray(data['image'], np.float32)
+                    margins = margins_of(data, images.ndim - 2)
                     t0 = time.time()
-                    labels = label_inf.run_batch(predictor, images)
-                    dt = (time.time() - t0) / len(samples)
-                    for i, (data, m) in enumerate(zip(samples, margins)):
-                        data['predict_label'] = _crop(labels[i:i + 1], m)
+                    pred = predictor
+                    if tt_dropout:
+                        fold = self._pass_fold(predictor, volume_index,
+                                               FPL_PASSES if fpl else 1)
+                        pred = fold if fpl else fold.take([0])
+                    if fpl:
+                        if margins is not None:
+                            vars_, boundary = label_inf.run_fpl_uncertainty(
+                                pred, images, FPL_PASSES, margins)
+                        else:
+                            # host fallback: per-pass logits, inverse and
+                            # softmax on the host
+                            passes = logits_inf.run_passes(pred, images,
+                                                           FPL_PASSES)
+                            maps = np.concatenate([scipy.special.softmax(
+                                self._host_inverse(dict(
+                                    data, predict=passes[i:i + 1]))['predict'],
+                                axis=1) for i in range(FPL_PASSES)])
+                            vars_, boundary = fpl_host_reduce(maps)
+                        uncer_one = 1 if boundary < 50 else vars_ / boundary
+                        name = _name_of(data)
+                        uncertainty[name] = [uncer_one]
+                        logging.info('%s %s', name, uncer_one)
+                    elif margins is not None:
+                        data['predict_label'] = _crop(
+                            label_inf.run(pred, images), margins)
                         self.save_outputs(data)
-                    infer_times.extend([dt] * len(samples))
-                    volume_index += len(samples)
-                    continue
-            for data in samples:
-                images = np.asarray(data['image'], np.float32)
-                margins = margins_of(data, images.ndim - 2)
-                t0 = time.time()
-                pred = predictor
-                if tt_dropout:
-                    fold = self._pass_fold(predictor, volume_index,
-                                           FPL_PASSES if fpl else 1)
-                    pred = fold if fpl else fold.take([0])
-                if fpl:
-                    if margins is not None:
-                        vars_, boundary = label_inf.run_fpl_uncertainty(
-                            pred, images, FPL_PASSES, margins)
                     else:
-                        # host fallback: per-pass logits, inverse and
-                        # softmax on the host
-                        passes = logits_inf.run_passes(pred, images,
-                                                       FPL_PASSES)
-                        maps = np.concatenate([scipy.special.softmax(
-                            self._host_inverse(dict(
-                                data, predict=passes[i:i + 1]))['predict'],
-                            axis=1) for i in range(FPL_PASSES)])
-                        vars_, boundary = fpl_host_reduce(maps)
-                    uncer_one = 1 if boundary < 50 else vars_ / boundary
-                    name = _name_of(data)
-                    uncertainty[name] = [uncer_one]
-                    logging.info('%s %s', name, uncer_one)
-                elif margins is not None:
-                    data['predict_label'] = _crop(label_inf.run(pred, images),
-                                                  margins)
-                    self.save_outputs(data)
-                else:
-                    data['predict'] = logits_inf.run(pred, images)
-                    self.save_outputs(self._host_inverse(data))
-                infer_times.append(time.time() - t0)
-                volume_index += 1
+                        data['predict'] = logits_inf.run(pred, images)
+                        self.save_outputs(self._host_inverse(data))
+                    infer_times.append(time.time() - t0)
+                    volume_index += 1
+        finally:
+            if profile_dir:
+                stop_trace()
         if fpl and is_primary_host():   # computed everywhere, written once
             pairs = sorted(zip(uncertainty.values(), uncertainty.keys()))
             np.save(cfg_test['fpl_uncertainty_sorted'],

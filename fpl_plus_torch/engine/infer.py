@@ -66,6 +66,11 @@ the JAX package's mesh Inferer (``engine/infer.py:672-766`` and
   ``PassFold``, which makes each rank's passes from their seeds. The
   per-pass logits are gathered before the reduction.
 
+Each entry (``run``, ``run_logits``, ``run_batch``, ``run_passes``,
+``run_fpl_uncertainty``) runs inside the profiler span ``infer_<entry>``
+(``utils/trace_metrics.py`` ``span``): one span per dispatch, as JAX's
+trace has one program per call.
+
 Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
 W = -1.
 """
@@ -78,6 +83,7 @@ import numpy as np
 import torch
 
 from fpl_plus_torch.utils.precision import resolve_dtype
+from fpl_plus_torch.utils.trace_metrics import traced
 
 
 def window_grid(img_shape: Sequence[int], window: Sequence[int],
@@ -414,10 +420,12 @@ class Inferer:
         return self._one([_finalize(h, self.output_mode).cpu().numpy()
                           for h in heads])
 
+    @traced('infer_run')
     @torch.inference_mode()
     def run(self, predictor: Callable, image):
         return self._host(self._run_dev(predictor, image))
 
+    @traced('infer_run_logits')
     @torch.inference_mode()
     def run_logits(self, predictor: Callable, image):
         """``run`` before the output head, kept on the device: the
@@ -432,6 +440,7 @@ class Inferer:
             raise ValueError('inference processes one volume at a time')
         return self._dev(predictor, image)
 
+    @traced('infer_run_batch')
     @torch.inference_mode()
     def run_batch(self, predictor: Callable, images):
         """Batched serving: N same-shape volumes ``[N, C, *img]`` through
@@ -475,6 +484,7 @@ class Inferer:
                          copies=len(mine), shard_windows=False)
         return [self.mesh.gather_rows(o)[:n_passes] for o in outs]
 
+    @traced('infer_run_passes')
     @torch.inference_mode()
     def run_passes(self, group_predictor: Callable, image,
                    n_passes: int):
@@ -487,6 +497,7 @@ class Inferer:
         averaging): the same as ``run`` with pass i's predictor."""
         return self._host(self._passes_dev(group_predictor, image, n_passes))
 
+    @traced('infer_run_fpl_uncertainty')
     @torch.inference_mode()
     def run_fpl_uncertainty(self, group_predictor: Callable, image,
                             n_passes: int, margins=None) -> Tuple[float, int]:

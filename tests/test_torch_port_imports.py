@@ -78,11 +78,27 @@ def test_source_scan_finds_no_forbidden_import():
                    'utils/flax_msgpack.py', 'utils/convert.py',
                    'utils/model_operate.py', 'utils/preprocess.py',
                    'utils/image_process.py', 'parallel/__init__.py',
-                   'parallel/mesh.py', 'parallel/multihost.py'):
+                   'parallel/mesh.py', 'parallel/multihost.py',
+                   'utils/trace_metrics.py'):
         assert pkg / module in sources
     for path in sources:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, '{0} imports {1}'.format(path, bad)
+
+
+def test_trace_metrics_imports_no_jax_even_inside_a_function():
+    """The JAX package's ``utils/trace_metrics.py`` imports jax inside
+    ``traced_device_ms``, and the scan sees that import; the port's module
+    imports torch and nothing forbidden, at module level or in a
+    function."""
+    jax_roots = set(_imported_roots(ROOT / 'fpl_plus_tpu' / 'utils' /
+                                    'trace_metrics.py'))
+    assert 'jax' in jax_roots and 'jax' not in _module_level_imports(
+        ROOT / 'fpl_plus_tpu' / 'utils' / 'trace_metrics.py')
+    roots = set(_imported_roots(ROOT / 'fpl_plus_torch' / 'utils' /
+                                'trace_metrics.py'))
+    assert 'torch' in roots
+    assert not roots & set(FORBIDDEN), roots
 
 
 def test_parallel_package_exports_the_jax_names_and_imports_no_jax():
