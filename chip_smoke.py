@@ -3654,7 +3654,7 @@ def dist_infer(inputs, dev, mesh=None):
              ('run_passes', lambda: logits_inf.run_passes(fold, volume,
                                                           passes)),
              ('fpl', lambda: label_inf.run_fpl_uncertainty(
-                 fold, volume, passes, inputs['margins'])))
+                 fold, volume, passes, inputs['margins'])()))
     out, seconds = {}, {}
     with tf32_off():
         dsbn_prelu.launches = 0      # the main path's count starts here

@@ -814,7 +814,7 @@ class SegmentationAgent(NetRunAgent):
                     if fpl:
                         if margins is not None:
                             vars_, boundary = label_inf.run_fpl_uncertainty(
-                                pred, images, FPL_PASSES, margins)
+                                pred, images, FPL_PASSES, margins)()
                         else:
                             # host fallback: per-pass logits, inverse and
                             # softmax on the host

@@ -500,14 +500,17 @@ class Inferer:
     @traced('infer_run_fpl_uncertainty')
     @torch.inference_mode()
     def run_fpl_uncertainty(self, group_predictor: Callable, image,
-                            n_passes: int, margins=None) -> Tuple[float, int]:
-        """The FPL image-level uncertainty ``(vars_sum, boundary)`` of
-        ``n_passes`` folded passes, reduced on the device
-        (``fpl_uncertainty_reduce``). ``margins``: optional
-        ``(margin_lower, margin_upper)`` per spatial axis, the composed
-        crop of the test chain's inverse transforms. The agent applies the
-        ``1 if boundary < 50 else vars_sum / boundary`` rule."""
+                            n_passes: int, margins=None) -> Callable:
+        """A zero-argument fetch of the FPL image-level uncertainty
+        ``(vars_sum, boundary)`` of ``n_passes`` folded passes, reduced on
+        the device (``fpl_uncertainty_reduce``), as the JAX package's
+        ``run_fpl_uncertainty`` returns one (``engine/infer.py:1305-1352``
+        there). ``margins``: optional ``(margin_lower, margin_upper)`` per
+        spatial axis, the composed crop of the test chain's inverse
+        transforms. The agent applies the ``1 if boundary < 50 else
+        vars_sum / boundary`` rule."""
         out = self._passes_dev(group_predictor, image, n_passes)[0]
         dim = out.dim() - 2
         lo, up = margins if margins is not None else ([0] * dim, [0] * dim)
-        return fpl_uncertainty_reduce(out, lo, up)
+        pair = fpl_uncertainty_reduce(out, lo, up)
+        return lambda: pair

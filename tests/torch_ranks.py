@@ -167,7 +167,7 @@ def run_infer_case(case, mesh):
         out['passes'] = logits.run_passes(fold, case['volume'],
                                           case['passes'])
         out['fpl'] = labels.run_fpl_uncertainty(
-            fold, case['volume'], case['passes'], case.get('margins'))
+            fold, case['volume'], case['passes'], case.get('margins'))()
         if mesh is not None:   # the helper needs a mesh
             window = case['testing']['sliding_window_size']
             starts = window_grid(case['volume'].shape[2:], window,
