@@ -212,9 +212,32 @@ then runs, each phase failing the script on any error:
     kernel events as launches counted, and labels equal to phase 4's; the
     spans' device time, the trace sizes, the step call under the profiler
     beside phase 12, and ``traced_device_ms`` of one ``Inferer.run``
-    beside CUDA events.
+    beside CUDA events;
+35. the pipelined test stage on phase 4's workspace with 5 more volumes (8
+    of 40x160x272): the f32 device-label ``cli test`` under ``profile_dir``,
+    as the agent runs it (volume i+1 dispatched before volume i's fetch and
+    save) and through a serial loop in the same agent (``run``, crop, save,
+    one volume at a time): labels equal between the two and to phase 4's
+    on its 3 volumes, 108 launches per volume and as many kernel events,
+    the peak above the stage's start within phase 4's plus one volume's
+    TTA accumulator; each loop's wall per volume (host clock, first
+    dispatch to last save), the device's idle share from the first to the
+    last kernel, the gaps between ``infer_run`` spans and the peaks; then
+    ``fpl = True`` pipelined and serial (the sorted uncertainty lists
+    equal, wall per volume), ``test_batch_size = 3`` across loader batches
+    (the first batch's labels equal to phase 8's), and one dispatch each of
+    ``run_async``, ``run_batch_async`` and ``run_fpl_uncertainty`` under
+    ``torch.cuda.set_sync_debug_mode('error')``, fetched after: none may
+    wait for the card.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33, 34) sets
+Phases 4, 7, 8, 17 and 34 time each Inferer dispatch that the stage makes
+(``run_async``, ``run_fpl_uncertainty``, ``run_batch_async``,
+``run_passes_async``, ``run_logits``) by CUDA events recorded before the
+call and when it returns, read when the stage has ended: the stream's time
+from the end of the work before the dispatch to the end of its copy out,
+with no wait inside the pipelined stage.
+
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33-35) sets
 the launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -298,7 +321,7 @@ CFG = """
 task_type = seg
 root_dir = {root}
 modal_num = 1
-test_csv = {root}/target_test.csv
+test_csv = {root}/{csv}
 test_batch_size = {batch}
 test_transform = {chain}
 NormalizeWithMeanStd_channels = [0]
@@ -536,21 +559,31 @@ def forward_phase(dev):
     return net, macs[0]
 
 
-def write_workspace(root, net):
+def write_volumes(root, cases, rs):
+    """Seeded 40x160x272 volumes ``img/case<i>.nii.gz`` for ``cases`` (a
+    bright block in noise); returns their names."""
     from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_nifti
-    rs = np.random.RandomState(SEED)
     geom = ImageGeometry(origin=(0., 0., 0.), spacing=(0.4, 0.4, 1.5),
                          direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
-    os.makedirs(os.path.join(root, 'img'))
+    os.makedirs(os.path.join(root, 'img'), exist_ok=True)
     names = []
-    for case in range(N_VOLUMES):
+    for case in cases:
         vol = rs.normal(100.0, 20.0, size=VOLUME).astype(np.float32)
         vol[12:28, 60:100, 100:170] += 80.0
         name = 'img/case{0}.nii.gz'.format(case)
         write_nifti(NiftiImage(vol, geom), os.path.join(root, name))
         names.append(name)
-    with open(os.path.join(root, 'target_test.csv'), 'w') as f:
+    return names
+
+
+def write_csv(root, csv, names):
+    with open(os.path.join(root, csv), 'w') as f:
         f.write('image\n' + '\n'.join(names) + '\n')
+
+
+def write_workspace(root, net):
+    names = write_volumes(root, range(N_VOLUMES), np.random.RandomState(SEED))
+    write_csv(root, 'target_test.csv', names)
     ckpt_dir = os.path.join(root, 'model', 'gen')
     os.makedirs(ckpt_dir)
     torch.save({'iteration': 100, 'valid_pred': 0.0,
@@ -581,6 +614,42 @@ def timed_method(cls, name, sink):
         yield sink
     finally:
         setattr(cls, name, orig)
+
+
+def start_peak():
+    """Reset the card's peak allocation; returns what is allocated now, the
+    base that a stage's peak is read above."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+@contextlib.contextmanager
+def timed_dispatch(cls, name, sink):
+    """Record in ``sink``, when the block ends, the CUDA-event ms of every
+    dispatch through ``cls.name`` (an Inferer entry): from an event
+    recorded before the call to one recorded when it returns, its work and
+    its result's copy out enqueued. Nothing waits inside the block, so a
+    pipelined caller keeps its schedule; each time is the stream's, from
+    the end of the work before the dispatch to the end of its copy out."""
+    orig = getattr(cls, name)
+    events = []
+
+    def timed(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(self, *args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield sink
+    finally:
+        setattr(cls, name, orig)
+        torch.cuda.synchronize()
+        sink.extend(start.elapsed_time(end) for start, end in events)
 
 
 @contextlib.contextmanager
@@ -622,12 +691,12 @@ def counting_forwards():
 
 
 def write_cfg(root, tag, precision='float32', batch=1, extra='', mode=0,
-              chain='[NormalizeWithMeanStd, Pad]'):
+              chain='[NormalizeWithMeanStd, Pad]', csv='target_test.csv'):
     cfg = os.path.join(root, tag + '.cfg')
     with open(cfg, 'w') as f:
         f.write(CFG.format(root=root, out='out_' + tag, precision=precision,
                            batch=batch, extra=extra, mode=mode, chain=chain,
-                           crop=list(CROP_VOLUME)))
+                           crop=list(CROP_VOLUME), csv=csv))
     return cfg
 
 
@@ -644,11 +713,13 @@ def serving_phase(root, net):
         out = 'out_' + precision
         cfg = write_cfg(root, precision, precision)
         vol_ms = []
-        with timed_method(Inferer, 'run', vol_ms), \
+        with timed_dispatch(Inferer, 'run_async', vol_ms), \
                 counting_forwards() as forwards:
+            base = start_peak()
             dsbn_prelu.launches = 0      # the main path's count starts here
             rc = cli.main(['test', cfg])
             launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated() - base
         check(rc == 0, 'test stage rc {0}'.format(rc))
         check(forwards[0] == N_VOLUMES * fwd_per_volume,
               '{0} forwards, expected {1}'.format(
@@ -667,13 +738,17 @@ def serving_phase(root, net):
                   'labels outside {0, 1}')
             labels.append(lab)
         results[precision] = {'vol_ms': vol_ms, 'launches': launches,
-                              'forwards': forwards[0], 'labels': labels}
+                              'forwards': forwards[0], 'labels': labels,
+                              'peak': peak}
         print('serving {0}: {1} volumes through fpl_plus_torch.cli, '
-              'Inferer.run ms per volume {2}, {3} forwards, {4} kernel '
-              'launches, foreground share {5:.4f}'.format(
+              'Inferer.run_async ms per volume (CUDA events, dispatch to its '
+              'copy out) {2}, {3} forwards, {4} kernel launches, peak device '
+              'memory above the allocation before the stage {5:.3f} GiB, '
+              'foreground share {6:.4f}'.format(
                   precision, len(labels),
                   ['{0:.2f}'.format(t) for t in vol_ms], forwards[0],
-                  launches, float(np.mean([lb.mean() for lb in labels]))))
+                  launches, peak / 2 ** 30,
+                  float(np.mean([lb.mean() for lb in labels]))))
     agree = np.mean([np.mean(a == b) for a, b in zip(
         results['float32']['labels'], results['bfloat16']['labels'])])
     print('serving: bf16 labels agree with f32 on {0:.5f} of voxels'.format(
@@ -721,8 +796,10 @@ def fold_phase(dev, net):
 
     lo, up = [2, 5, 3], [1, 0, 7]
     logits = torch.from_numpy(folded)
-    v_dev, b_dev = fpl_uncertainty_reduce(logits.to(dev), lo, up)
-    v_cpu, b_cpu = fpl_uncertainty_reduce(logits, lo, up)
+    (v_dev, b_dev), (v_cpu, b_cpu) = (
+        (float(v), int(b)) for v, b in (
+            fpl_uncertainty_reduce(logits.to(dev), lo, up),
+            fpl_uncertainty_reduce(logits, lo, up)))
     n_sel = int(np.prod([s - a - b for s, a, b in zip(FOLD_VOLUME, lo, up)]))
     print('reduce: vars_sum card {0!r} CPU {1!r}; boundary card {2} CPU {3} '
           'of {4} voxels'.format(v_dev, v_cpu, b_dev, b_cpu, n_sel))
@@ -746,7 +823,7 @@ def fpl_phase(root, dev, names, fwd_per_volume):
         cfg = write_cfg(root, 'fpl_' + precision, precision, extra=(
             'fpl = True\nfpl_uncertainty_sorted = ' + npy))
         ms = []
-        with timed_method(Inferer, 'run_fpl_uncertainty', ms), \
+        with timed_dispatch(Inferer, 'run_fpl_uncertainty', ms), \
                 counting_forwards() as forwards:
             torch.cuda.reset_peak_memory_stats(dev)
             dsbn_prelu.launches = 0      # the main path's count starts here
@@ -772,7 +849,8 @@ def fpl_phase(root, dev, names, fwd_per_volume):
                               'by_name': {str(e[1]): v for e, v in
                                           zip(entries, values)}}
         print('fpl {0}: {1} volumes through fpl_plus_torch.cli, '
-              'run_fpl_uncertainty ms per volume {2}, {3} forwards of batch '
+              'run_fpl_uncertainty ms per volume (CUDA events, dispatch to '
+              'its copy out) {2}, {3} forwards of batch '
               '{4}, {5} kernel launches, peak device memory {6:.2f} GiB, '
               'uncertainties {7}'.format(
                   precision, len(values), ['{0:.2f}'.format(t) for t in ms],
@@ -793,7 +871,7 @@ def batched_phase(root, labels_f32, names, fwd_per_volume):
     def stage(tag, batch, extra=''):
         cfg = write_cfg(root, tag, batch=batch, extra=extra)
         ms = []
-        with timed_method(Inferer, 'run_batch', ms), \
+        with timed_dispatch(Inferer, 'run_batch_async', ms), \
                 counting_forwards() as forwards:
             dsbn_prelu.launches = 0      # the main path's count starts here
             rc = cli.main(['test', cfg])
@@ -824,7 +902,7 @@ def batched_phase(root, labels_f32, names, fwd_per_volume):
               'batched labels agree with per-volume on {0}'.format(
                   r['agree']))
         runs.append(r)
-        print('batched {0}: test_batch_size {1}, run_batch {2:.2f} ms per '
+        print('batched {0}: test_batch_size {1}, run_batch_async {2:.2f} ms per '
               'volume, {3} forwards of batch {4}, {5} kernel launches, '
               'labels agree with per-volume (TF32) on {6}'.format(
                   rep, SERVE_BATCH, r['ms'], r['forwards'],
@@ -1536,13 +1614,13 @@ def test_paths_phase(root, names, serving, fpl):
     host = 'infer_device_label = False'
     npy = os.path.join(root, 'fpl_host.npy')
     runs = (
-        ('host', 'run', host, 0, '', None, fwd),
-        ('fpl_host', 'run_passes', host + '\nfpl = True\n'
+        ('host', 'run_async', host, 0, '', None, fwd),
+        ('fpl_host', 'run_passes_async', host + '\nfpl = True\n'
          'fpl_uncertainty_sorted = ' + npy, 0, '', None, fwd),
         ('ens', 'run_logits', '', 3, [train2, train4], None, 2 * fwd),
         ('ens_aa', 'run_logits', '', 3, [train4, train4], None, 2 * fwd),
-        ('single', 'run', host, 2, train4, None, fwd),
-        ('crop', 'run', '', 0, '', '[NormalizeWithMeanStd, CenterCrop]',
+        ('single', 'run_async', host, 2, train4, None, fwd),
+        ('crop', 'run_async', '', 0, '', '[NormalizeWithMeanStd, CenterCrop]',
          crop_fwd),
     )
     results = {}
@@ -1554,7 +1632,7 @@ def test_paths_phase(root, names, serving, fpl):
         cfg = write_cfg(root, tag, extra=extra, mode=mode,
                         chain=chain or '[NormalizeWithMeanStd, Pad]')
         ms = []
-        with timed_method(Inferer, method, ms), \
+        with timed_dispatch(Inferer, method, ms), \
                 counting_forwards() as forwards:
             dsbn_prelu.launches = 0      # the main path's count starts here
             rc = cli.main(['test', cfg])
@@ -4522,7 +4600,7 @@ def profile_phase(root, dev, serving, names, timed, train, fwd_per_volume):
     test_dir = os.path.join(root, 'trace_test')
     cfg = write_cfg(root, 'profile_test', extra='profile_dir = ' + test_dir)
     vol_ms, stop_s = [], []
-    with timed_method(Inferer, 'run', vol_ms), \
+    with timed_dispatch(Inferer, 'run_async', vol_ms), \
             timed_function(agent_seg, 'stop_trace', stop_s), \
             counting_forwards() as forwards:
         dsbn_prelu.launches = 0          # the main path's count starts here
@@ -4622,9 +4700,10 @@ def profile_phase(root, dev, serving, names, timed, train, fwd_per_volume):
     print('profile (phase 34) test: trace {0} B gzipped ({1} events), {2} '
           'infer_run spans {3} us (busy {4:.1f} us, {5:.1f} us per volume; '
           'kernels, copies and fills {6:.1f} us, {7:.2%} of it), {8} '
-          'DSBN+PReLU kernel events = {9} launches; Inferer.run (CUDA '
-          'events, profiled) {10} ms, phase 4 {11} ms; labels equal to '
-          'phase 4 {12}; stop and write {13:.2f} s'.format(
+          'DSBN+PReLU kernel events = {9} launches; Inferer.run_async '
+          '(CUDA events, dispatch to its copy out, profiled) {10} ms, phase '
+          '4 {11} ms; labels equal to phase 4 {12}; stop and write {13:.2f} '
+          's'.format(
               v['bytes'], v['events'], N_VOLUMES,
               ['{0:.1f}'.format(x) for x in v['span_us']], v['busy_us'],
               v['busy_us'] / N_VOLUMES, v['kernel_busy_us'],
@@ -4649,6 +4728,315 @@ def profile_phase(root, dev, serving, names, timed, train, fwd_per_volume):
               timed['float32']['ms'], q_ms / timed['float32']['ms'] - 1,
               out['step_traced_ms'], out['wall_s']))
     out['launches'] = t['launches'] + v['launches']
+    return out
+
+
+# -- phase 35: the pipelined test stage --------------------------------------
+PIPE_VOLUMES = 8                 # phase 4's 3 volumes and 5 more
+PIPE_CSV = 'target_test8.csv'
+PIPE_SEED = SEED + 350           # the 5 more volumes
+# the peak above the allocation before the stage may exceed phase 4's by one
+# volume's outputs: the TTA accumulator of 2 classes over 4 flips in f32
+VOLUME_OUT_BYTES = TTA_VARIANTS * 2 * int(np.prod(VOLUME)) * 4
+PIPE_MARGINS = ([0, 0, 0], [0, 0, 0])    # Pad's inverse crops nothing here
+
+
+def serial_infer(self):
+    """Phase 35's serial test stage through the same agent (its loader with
+    the decode thread, its Inferers, its checkpoint, its saves): each
+    volume's ``run`` (or the loader batch's ``run_batch``, or the FPL
+    pass's ``run_fpl_uncertainty(...)()``) is fetched, cropped and saved
+    before the next is dispatched. Installed as
+    ``SegmentationAgent.infer``."""
+    import fpl_plus_torch.agents.agent_seg as agent_seg
+    from fpl_plus_torch.engine import ckpt as ckpt_lib
+    cfg = self.config['testing']
+    fpl = cfg.get('fpl', False)
+    module = self._loaded_module(ckpt_lib.get_checkpoint_name(self.config))
+    label_inf, _ = self._inferers()
+    predictor = agent_seg.head_predictor(module, cfg['domian_label'])
+    profile_dir = cfg.get('profile_dir')
+    if profile_dir:
+        agent_seg.start_trace(profile_dir, self.device)
+    uncertainty, index = {}, 0
+    try:
+        for batch in agent_seg.prefetch_iter(self.test_loader):
+            samples = list(agent_seg._split_batch(batch))
+            if len(samples) > 1 and not fpl:
+                labels = label_inf.run_batch(
+                    predictor, np.asarray(batch['image'], np.float32))
+                for i, data in enumerate(samples):
+                    data['predict_label'] = agent_seg._crop(
+                        labels[i:i + 1], self._selection_margins(data, 3))
+                    self.save_outputs(data)
+                index += len(samples)
+                continue
+            for data in samples:
+                image = np.asarray(data['image'], np.float32)
+                margins = self._selection_margins(data, 3)
+                if fpl:
+                    vars_, boundary = label_inf.run_fpl_uncertainty(
+                        self._pass_fold(predictor, index, FPL_PASSES),
+                        image, FPL_PASSES, margins)()
+                    uncertainty[agent_seg._name_of(data)] = [
+                        1 if boundary < 50 else vars_ / boundary]
+                else:
+                    data['predict_label'] = agent_seg._crop(
+                        label_inf.run(predictor, image), margins)
+                    self.save_outputs(data)
+                index += 1
+    finally:
+        if profile_dir:
+            agent_seg.stop_trace()
+    if fpl:
+        np.save(cfg['fpl_uncertainty_sorted'], np.asarray(sorted(zip(
+            uncertainty.values(), uncertainty.keys())), dtype=object))
+
+
+@contextlib.contextmanager
+def host_timeline(sink):
+    """Host clock of the stage's volume loop: ``sink['start']`` gets the
+    time of each Inferer dispatch, ``sink['end']`` the time each volume's
+    work ends (``save_outputs`` returns, or an FPL fetch returns). The loop's
+    wall is from the first dispatch to the last end."""
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    from fpl_plus_torch.engine.infer import Inferer
+    swapped = []
+
+    def swap(cls, name, wrap):
+        orig = getattr(cls, name)
+        swapped.append((cls, name, orig))
+        setattr(cls, name, wrap(orig))
+
+    def dispatch(orig):
+        def inner(self, *args):
+            sink['start'].append(time.perf_counter())
+            return orig(self, *args)
+        return inner
+
+    def fpl_dispatch(orig):
+        def inner(self, *args):
+            sink['start'].append(time.perf_counter())
+            fetch = orig(self, *args)
+
+            def fetched():
+                out = fetch()
+                sink['end'].append(time.perf_counter())
+                return out
+            return fetched
+        return inner
+
+    def save(orig):
+        def inner(self, data):
+            out = orig(self, data)
+            sink['end'].append(time.perf_counter())
+            return out
+        return inner
+
+    for name in ('run_async', 'run_batch_async'):
+        swap(Inferer, name, dispatch)
+    swap(Inferer, 'run_fpl_uncertainty', fpl_dispatch)
+    swap(SegmentationAgent, 'save_outputs', save)
+    try:
+        yield sink
+    finally:
+        for cls, name, orig in swapped:
+            setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def agent_loop(loop):
+    """``SegmentationAgent.infer`` as it is ('pipelined') or
+    ``serial_infer`` ('serial') inside the block."""
+    from fpl_plus_torch.agents.agent_seg import SegmentationAgent
+    orig = SegmentationAgent.infer
+    if loop == 'serial':
+        SegmentationAgent.infer = serial_infer
+    try:
+        yield
+    finally:
+        SegmentationAgent.infer = orig
+
+
+def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
+    """(35) The pipelined test stage on phase 4's workspace with 5 more
+    volumes (8 of 40x160x272): the f32 device-label ``cli test`` under
+    ``profile_dir``, pipelined and through ``serial_infer``; ``fpl = True``
+    pipelined and serial; ``test_batch_size = 3`` across loader batches;
+    then dispatches under ``torch.cuda.set_sync_debug_mode('error')``."""
+    import fpl_plus_torch.agents.agent_seg as agent_seg
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.engine.infer import Inferer, PassFold
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.utils import trace_metrics as tm
+    t_phase = time.perf_counter()
+    more = write_volumes(root, range(N_VOLUMES, PIPE_VOLUMES),
+                         np.random.RandomState(PIPE_SEED))
+    all_names = list(names) + more
+    write_csv(root, PIPE_CSV, all_names)
+    out = {'launches': 0}
+
+    def stage(tag, loop, batch=1, extra='', trace=False):
+        trace_dir = os.path.join(root, 'trace_' + tag)
+        if trace:
+            extra += '\nprofile_dir = ' + trace_dir
+        cfg = write_cfg(root, tag, batch=batch, extra=extra, csv=PIPE_CSV)
+        times = {'start': [], 'end': []}
+        with agent_loop(loop), host_timeline(times), \
+                counting_forwards() as forwards:
+            base = start_peak()
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            rc = cli.main(['test', cfg])
+            launches = dsbn_prelu.launches
+            peak = torch.cuda.max_memory_allocated() - base
+        check(rc == 0, '{0} stage rc {1}'.format(tag, rc))
+        n_dispatch = -(-PIPE_VOLUMES // batch)
+        want = (n_dispatch if batch > 1 else PIPE_VOLUMES) * fwd_per_volume
+        check(forwards[0] == want and launches == 18 * forwards[0],
+              '{0}: {1} kernel launches for {2} forwards, expected {3} '
+              'forwards'.format(tag, launches, forwards[0], want))
+        check(len(times['start']) == (n_dispatch if batch > 1
+                                      else PIPE_VOLUMES),
+              '{0}: {1} dispatches'.format(tag, len(times['start'])))
+        out['launches'] += launches
+        r = {'launches': launches, 'peak': peak,
+             'wall_s': max(times['end']) - min(times['start'])}
+        if 'fpl = True' not in extra:
+            r['labels'] = [load_image_as_nd_array(os.path.join(
+                root, 'out_' + tag, 'gen_target_test8',
+                os.path.basename(n)))['data_array'] for n in all_names]
+        if trace:
+            path = one_trace(trace_dir)
+            events = tm.trace_events(path)
+            spans = tm.module_events_us(path)
+            check(len(spans.get('infer_run', [])) == PIPE_VOLUMES,
+                  '{0}: infer_run spans {1}'.format(
+                      tag, {k: len(v) for k, v in spans.items()}))
+            check(kernel_events(events) == launches,
+                  '{0}: {1} DSBN+PReLU kernel events, {2} launches'.format(
+                      tag, kernel_events(events), launches))
+            r['window_us'] = tm.device_window_us(path)
+            r['kernel_busy_us'] = tm.kernel_busy_us(path)
+            r['idle'] = 1 - r['kernel_busy_us'] / r['window_us']
+            r['gaps_us'] = tm.span_gaps_us(path, 'infer_run')
+            r['span_us'] = spans['infer_run']
+        return r
+
+    label = {loop: stage('pipe_' + loop, loop, trace=True)
+             for loop in ('pipelined', 'serial')}
+    for i, (a, b) in enumerate(zip(label['pipelined']['labels'],
+                                   label['serial']['labels'])):
+        check(np.array_equal(a, b), 'volume {0}: pipelined and serial labels '
+              'differ on {1} voxels'.format(i, int((a != b).sum())))
+    for i, want in enumerate(serving['float32']['labels']):
+        check(np.array_equal(label['pipelined']['labels'][i], want),
+              'volume {0}: pipelined labels differ from phase 4'.format(i))
+    limit = serving['float32']['peak'] + VOLUME_OUT_BYTES
+    check(label['pipelined']['peak'] <= limit, 'pipelined peak {0} B over '
+          'phase 4\'s {1} B and one volume\'s outputs'.format(
+              label['pipelined']['peak'], serving['float32']['peak']))
+
+    fpl = {}
+    for loop in ('pipelined', 'serial'):
+        npy = os.path.join(root, 'fpl8_{0}.npy'.format(loop))
+        fpl[loop] = stage('fpl8_' + loop, loop, extra=(
+            'fpl = True\nfpl_uncertainty_sorted = ' + npy))
+        entries = np.load(npy, allow_pickle=True)
+        fpl[loop]['list'] = [(float(np.asarray(e[0]).reshape(-1)[0]),
+                              str(e[1])) for e in entries]
+    check(fpl['pipelined']['list'] == fpl['serial']['list'],
+          'FPL lists differ: pipelined {0}, serial {1}'.format(
+              fpl['pipelined']['list'], fpl['serial']['list']))
+    check(sorted(n for _, n in fpl['pipelined']['list']) == sorted(all_names)
+          and all(np.isfinite(v) for v, _ in fpl['pipelined']['list']),
+          'FPL list {0}'.format(fpl['pipelined']['list']))
+
+    batch = stage('batch8', 'pipelined', batch=SERVE_BATCH)
+    for i, want in enumerate(batched[0]['labels']):
+        check(np.array_equal(batch['labels'][i], want),
+              'volume {0}: batched labels differ from phase 8'.format(i))
+    agree = [float(np.mean(a == b)) for a, b in zip(
+        batch['labels'], label['pipelined']['labels'])]
+    check(min(agree) >= BATCH_AGREE_TF32, 'batched labels agree with '
+          'per-volume on {0}'.format(agree))
+
+    # dispatches of each async entry with every synchronizing call refused
+    net = create_network(NET_CFG)
+    net.load_state_dict(torch.load(
+        os.path.join(root, 'model', 'gen', 'gen_100.pt'),
+        map_location='cpu', weights_only=False)['model_state_dict'])
+    predictor = agent_seg.head_predictor(net.to(dev).eval(), DOMAIN)
+    inferer = Inferer({'sliding_window_enable': True,
+                       'sliding_window_size': WINDOW,
+                       'sliding_window_stride': WINDOW, 'tta_mode': 1,
+                       'patch_chunk': PATCH_CHUNK, 'output_mode': 'label'},
+                      dev)
+    vols = np.concatenate([load_image_as_nd_array(os.path.join(root, n))[
+        'data_array'].astype(np.float32)[None] for n in all_names[:2]])
+    vols = (vols - vols.mean((1, 2, 3, 4), keepdims=True)) / vols.std(
+        (1, 2, 3, 4), keepdims=True)
+    fold = PassFold(predictor, np.random.SeedSequence(
+        [SEED, 35]).generate_state(FPL_PASSES), dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fetches = [inferer.run_async(predictor, vols[:1]),
+                   inferer.run_batch_async(predictor, vols),
+                   inferer.run_fpl_uncertainty(fold, vols[:1], FPL_PASSES,
+                                               PIPE_MARGINS)]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    one, both, pair = (f() for f in fetches)
+    check(np.array_equal(one, inferer.run(predictor, vols[:1])),
+          'the fetch of a sync-checked dispatch differs from run')
+    check(both.shape == (2,) + VOLUME and np.isfinite(pair[0]),
+          'sync-checked batch {0}, FPL pair {1}'.format(both.shape, pair))
+    del net, predictor, fold
+    torch.cuda.empty_cache()
+    out['wall_s'] = time.perf_counter() - t_phase
+
+    for loop, r in label.items():
+        print('pipeline (phase 35) {0} label stage: {1} volumes, wall {2:.4f} '
+              's per volume (first dispatch to last save, host clock, under '
+              'the profiler), device idle {3:.2%} of the window from the '
+              'first to the last kernel ({4:.1f} us, busy {5:.1f} us), '
+              'infer_run spans {6} us, gaps between them {7} us (median '
+              '{8:.1f}), peak {9:.3f} GiB, {10} launches'.format(
+                  loop, PIPE_VOLUMES, r['wall_s'] / PIPE_VOLUMES, r['idle'],
+                  r['window_us'], r['kernel_busy_us'],
+                  ['{0:.1f}'.format(x) for x in r['span_us']],
+                  ['{0:.1f}'.format(x) for x in r['gaps_us']],
+                  float(np.median(r['gaps_us'])), r['peak'] / 2 ** 30,
+                  r['launches']))
+    print('pipeline (phase 35): labels pipelined = serial on all {0} volumes, '
+          '= phase 4 on its {1}; peak pipelined {2:.3f} GiB, serial {3:.3f} '
+          'GiB, phase 4 {4:.3f} GiB (limit {5:.3f})'.format(
+              PIPE_VOLUMES, N_VOLUMES, label['pipelined']['peak'] / 2 ** 30,
+              label['serial']['peak'] / 2 ** 30,
+              serving['float32']['peak'] / 2 ** 30, limit / 2 ** 30))
+    print('pipeline (phase 35) fpl: wall per volume pipelined {0:.4f} s, '
+          'serial {1:.4f} s (first dispatch to last fetch); lists equal; '
+          'peak {2:.3f} / {3:.3f} GiB; {4} + {5} launches'.format(
+              fpl['pipelined']['wall_s'] / PIPE_VOLUMES,
+              fpl['serial']['wall_s'] / PIPE_VOLUMES,
+              fpl['pipelined']['peak'] / 2 ** 30,
+              fpl['serial']['peak'] / 2 ** 30, fpl['pipelined']['launches'],
+              fpl['serial']['launches']))
+    print('pipeline (phase 35) test_batch_size {0}: wall per volume {1:.4f} '
+          's, labels of the first batch = phase 8, agreement with per-volume '
+          '{2}, {3} launches; sync-checked dispatches of run_async, '
+          'run_batch_async and run_fpl_uncertainty raised nothing; phase wall '
+          '{4:.1f} s'.format(SERVE_BATCH, batch['wall_s'] / PIPE_VOLUMES,
+                             ['{0:.5f}'.format(a) for a in agree],
+                             batch['launches'], out['wall_s']))
+    out.update(label={k: {f: v for f, v in r.items() if f != 'labels'}
+                      for k, r in label.items()},
+               fpl={k: {f: v for f, v in r.items() if f != 'list'}
+                    for k, r in fpl.items()},
+               batch={f: v for f, v in batch.items() if f != 'labels'},
+               batch_agree=agree)
     return out
 
 
@@ -4717,6 +5105,8 @@ def main():
         paradigm_nccl = paradigm_nccl_phase(ws, dev, fwd_per_volume)
         profile = profile_phase(ws, dev, serving, names, timed, train,
                                 fwd_per_volume)
+        pipeline = pipeline_phase(ws, dev, serving, batched, names,
+                                  fwd_per_volume)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
@@ -4730,7 +5120,8 @@ def main():
         b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in launch_shapes)
         v_ms = float(np.median(serving[precision]['vol_ms']))
         per_volume[precision] = (k_ms, b_ms, v_ms)
-        print('per volume {0}: Inferer.run median {1:.2f} ms; kernel {2:.3f} '
+        print('per volume {0}: Inferer.run_async median {1:.2f} ms; kernel '
+              '{2:.3f} '
               'ms ({3:.1%} of it) for {4} launches; kernel bound {5:.3f} ms; '
               'conv {6:.2f} TFLOP per volume, {7:.1f} TFLOP/s over the run'
               .format(precision, v_ms, k_ms, k_ms / v_ms,
@@ -4816,7 +5207,7 @@ def main():
                      + scale_out['launches'] + multihost_cli['launches']
                      + nccl['launches']
                      + sum(r['launches'] for r in paradigm_nccl.values())
-                     + profile['launches']),
+                     + profile['launches'] + pipeline['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -4933,6 +5324,12 @@ def main():
         'profile_step_profiled_ms': profile['step_profiled_ms'],
         'profile_step_traced_ms': profile['step_traced_ms'],
         'profile_wall_s': profile['wall_s'],
+        'pipeline_launches': pipeline['launches'],
+        'pipeline_label': pipeline['label'],
+        'pipeline_fpl': pipeline['fpl'],
+        'pipeline_batch': pipeline['batch'],
+        'pipeline_batch_agree': pipeline['batch_agree'],
+        'pipeline_wall_s': pipeline['wall_s'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

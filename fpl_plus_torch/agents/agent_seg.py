@@ -67,6 +67,13 @@ undo the test transforms and save label NIfTIs with the source geometry.
 * ``ckpt_mode = 3``: one forward per checkpoint of ``[testing]
   ckpt_name``, the logits averaged, then the host inverse and the save.
 * ``test_time_dropout = True``: one dropout pass.
+* The volume loop is the JAX agent's one-deep pipeline (JAX :849-1055):
+  each volume (or loader batch, or FPL pass) is dispatched through the
+  Inferer's ``*_async`` entries, and only then is the previous one's fetch
+  read, cropped or inverted and saved (its uncertainty recorded); the last
+  entries are finished after the loop. Saves stay in loader order. The FPL
+  host fallback fetches at once, as JAX's does. ``ckpt_mode = 3``
+  dispatches every checkpoint's forward of a volume before its one fetch.
 
 Dropout randomness at test time: volume i of the stage draws its pass seeds
 from ``np.random.SeedSequence([random_seed, i])`` and gets one
@@ -779,6 +786,42 @@ class SegmentationAgent(NetRunAgent):
                 else None
 
         infer_times, uncertainty = [], {}
+
+        def record_fpl(name, vars_, boundary, t0):
+            uncer_one = 1 if boundary < 50 else vars_ / boundary
+            uncertainty[name] = [uncer_one]
+            logging.info('%s %s', name, uncer_one)
+            infer_times.append(time.time() - t0)
+
+        # the one-deep pipeline (JAX :849-1048): volume i+1, or loader batch
+        # b+1, is dispatched before volume i's fetch, crop or host inverse
+        # and save, so the host's work on i overlaps the card's on i+1
+        pending = None       # ('volume' | 'batch', fetch, data, t0, margins)
+        pending_fpl = None   # (fetch, name, t0): a device-reduced FPL pass
+
+        def finish(entry):
+            kind, fetch, p_data, p_t0, p_margins = entry
+            if kind == 'batch':
+                labels = fetch()
+                for i, (data, m) in enumerate(zip(p_data, p_margins)):
+                    data['predict_label'] = _crop(labels[i:i + 1], m)
+                    self.save_outputs(data)
+                # per volume: the batch's time over its volumes
+                infer_times.extend([(time.time() - p_t0) / len(p_data)]
+                                   * len(p_data))
+                return
+            if p_margins is not None:
+                p_data['predict_label'] = _crop(fetch(), p_margins)
+                self.save_outputs(p_data)
+            else:
+                p_data['predict'] = fetch()
+                self.save_outputs(self._host_inverse(p_data))
+            infer_times.append(time.time() - p_t0)
+
+        def finish_fpl(entry):
+            fetch, name, p_t0 = entry
+            record_fpl(name, *fetch(), p_t0)
+
         volume_index = 0
         # the volume loop (JAX :845-847,1050-1051)
         profile_dir = cfg_test.get('profile_dir', None)
@@ -794,12 +837,10 @@ class SegmentationAgent(NetRunAgent):
                     margins = [margins_of(d, images.ndim - 2) for d in samples]
                     if all(m is not None for m in margins):
                         t0 = time.time()
-                        labels = label_inf.run_batch(predictor, images)
-                        dt = (time.time() - t0) / len(samples)
-                        for i, (data, m) in enumerate(zip(samples, margins)):
-                            data['predict_label'] = _crop(labels[i:i + 1], m)
-                            self.save_outputs(data)
-                        infer_times.extend([dt] * len(samples))
+                        fetch = label_inf.run_batch_async(predictor, images)
+                        if pending is not None:
+                            finish(pending)
+                        pending = ('batch', fetch, samples, t0, margins)
                         volume_index += len(samples)
                         continue
                 for data in samples:
@@ -811,33 +852,34 @@ class SegmentationAgent(NetRunAgent):
                         fold = self._pass_fold(predictor, volume_index,
                                                FPL_PASSES if fpl else 1)
                         pred = fold if fpl else fold.take([0])
-                    if fpl:
-                        if margins is not None:
-                            vars_, boundary = label_inf.run_fpl_uncertainty(
-                                pred, images, FPL_PASSES, margins)()
-                        else:
-                            # host fallback: per-pass logits, inverse and
-                            # softmax on the host
-                            passes = logits_inf.run_passes(pred, images,
-                                                           FPL_PASSES)
-                            maps = np.concatenate([scipy.special.softmax(
-                                self._host_inverse(dict(
-                                    data, predict=passes[i:i + 1]))['predict'],
-                                axis=1) for i in range(FPL_PASSES)])
-                            vars_, boundary = fpl_host_reduce(maps)
-                        uncer_one = 1 if boundary < 50 else vars_ / boundary
-                        name = _name_of(data)
-                        uncertainty[name] = [uncer_one]
-                        logging.info('%s %s', name, uncer_one)
-                    elif margins is not None:
-                        data['predict_label'] = _crop(
-                            label_inf.run(pred, images), margins)
-                        self.save_outputs(data)
-                    else:
-                        data['predict'] = logits_inf.run(pred, images)
-                        self.save_outputs(self._host_inverse(data))
-                    infer_times.append(time.time() - t0)
                     volume_index += 1
+                    if fpl and margins is not None:
+                        fetch = label_inf.run_fpl_uncertainty(
+                            pred, images, FPL_PASSES, margins)
+                        if pending_fpl is not None:
+                            finish_fpl(pending_fpl)
+                        pending_fpl = (fetch, _name_of(data), t0)
+                    elif fpl:
+                        # host fallback, fetched at once (JAX :972-1016):
+                        # per-pass logits, inverse and softmax on the host
+                        passes = logits_inf.run_passes(pred, images,
+                                                       FPL_PASSES)
+                        maps = np.concatenate([scipy.special.softmax(
+                            self._host_inverse(dict(
+                                data, predict=passes[i:i + 1]))['predict'],
+                            axis=1) for i in range(FPL_PASSES)])
+                        record_fpl(_name_of(data), *fpl_host_reduce(maps), t0)
+                    else:
+                        inferer = label_inf if margins is not None \
+                            else logits_inf
+                        fetch = inferer.run_async(pred, images)
+                        if pending is not None:
+                            finish(pending)
+                        pending = ('volume', fetch, data, t0, margins)
+            if pending is not None:
+                finish(pending)
+            if pending_fpl is not None:
+                finish_fpl(pending_fpl)
         finally:
             if profile_dir:
                 stop_trace()
@@ -863,6 +905,10 @@ class SegmentationAgent(NetRunAgent):
             for data in _split_batch(batch_data):
                 images = np.asarray(data['image'], np.float32)
                 t0 = time.time()
+                # every checkpoint's forward is dispatched before the one
+                # fetch below (JAX :1104-1110; its fold of the checkpoints
+                # into one dispatch, :1083-1099, is not followed: ROADMAP.md
+                # section 3)
                 with torch.inference_mode():
                     logits = torch.stack([logits_inf.run_logits(
                         head_predictor(m, domain_label), images)

@@ -66,10 +66,25 @@ the JAX package's mesh Inferer (``engine/infer.py:672-766`` and
   ``PassFold``, which makes each rank's passes from their seeds. The
   per-pass logits are gathered before the reduction.
 
-Each entry (``run``, ``run_logits``, ``run_batch``, ``run_passes``,
-``run_fpl_uncertainty``) runs inside the profiler span ``infer_<entry>``
-(``utils/trace_metrics.py`` ``span``): one span per dispatch, as JAX's
-trace has one program per call.
+Asynchronous serving, as the JAX package's (``run_async``,
+``run_batch_async``, ``run_passes_async``, a fetch-returning
+``run_fpl_uncertainty`` and ``run_mc``; ``engine/infer.py:986-1369``
+there): an entry dispatches everything and returns a ``fetch``; ``run``,
+``run_batch`` and ``run_passes`` are ``*_async(...)()``. Between dispatch
+and fetch nothing waits for the card: the volume crosses in from a pinned
+buffer with ``non_blocking``, the counters are made on the device, the
+FPL reduction stays there, and the result crosses out into pinned memory
+behind a recorded event that only the fetch waits on. Under a mesh the
+NCCL all-reduce and gathers are stream-ordered too, and every rank
+dispatches in the same order; gloo's collectives block, so there the
+dispatch waits (the result is the same).
+
+Each dispatch (``run_async``, ``run_logits``, ``run_batch_async``,
+``run_passes_async``, ``run_fpl_uncertainty``) runs inside the profiler
+span ``infer_<entry>`` of its synchronous entry (``infer_run``,
+``infer_run_logits``, ``infer_run_batch``, ``infer_run_passes``,
+``infer_run_fpl_uncertainty``; ``utils/trace_metrics.py`` ``span``): one
+span per dispatch, as JAX's trace has one program per call.
 
 Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
 W = -1.
@@ -146,29 +161,31 @@ def _unflip_mean(outputs: torch.Tensor, n: int, tta: bool) -> torch.Tensor:
     return sum(un) / len(un)
 
 
-def _coverage(dim_starts, window, head_window, out_shape) -> np.ndarray:
+def _coverage(dim_starts, window, head_window, out_shape,
+              device) -> torch.Tensor:
     """Closed-form overlap counter ``[*out_shape]`` of a head whose window
     output is ``head_window`` (its starts scale by ``head_window /
-    window``): the outer product of per-dim coverage vectors, exactly the
-    accumulated count of windows covering each voxel."""
-    vecs = []
+    window``), made on ``device``: the outer product of per-dim coverage
+    vectors, exactly the accumulated count of windows covering each
+    voxel (small integers, exact in f32)."""
+    c = None
     for d, starts in enumerate(dim_starts):
-        cov = np.zeros(out_shape[d], np.float32)
+        cov = torch.zeros(out_shape[d], dtype=torch.float32, device=device)
         for s in starts:
             s0 = s * head_window[d] // window[d]
             cov[s0:s0 + head_window[d]] += 1.0
-        vecs.append(cov)
-    c = vecs[0]
-    for v in vecs[1:]:
-        c = c[..., None] * v
+        c = cov if c is None else c[..., None] * cov
     return c
 
 
-def _nearest_resize(c: np.ndarray, out_shape) -> np.ndarray:
+def _nearest_resize(c: torch.Tensor, out_shape) -> torch.Tensor:
     """Nearest-neighbour resize (source index ``floor(i * in / out)``, torch
-    ``F.interpolate`` nearest) of a counter to ``out_shape``."""
-    idx = [(np.arange(o) * i) // o for i, o in zip(c.shape, out_shape)]
-    return c[np.ix_(*idx)]
+    ``F.interpolate`` nearest) of a counter to ``out_shape``, on its
+    device."""
+    for d, (i, o) in enumerate(zip(c.shape, out_shape)):
+        idx = torch.arange(o, device=c.device) * i // o
+        c = c.index_select(d, idx)
+    return c
 
 
 def _box(start, size):
@@ -188,7 +205,8 @@ def _finalize(out: torch.Tensor, output_mode: str) -> torch.Tensor:
 
 
 def fpl_uncertainty_reduce(out: torch.Tensor, lo: Sequence[int],
-                           up: Sequence[int]) -> Tuple[float, int]:
+                           up: Sequence[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce folded-pass logits ``[N, K, *img]`` to the FPL image-level
     uncertainty on their device, in f32 (reference agent_seg.py:921-929):
 
@@ -200,8 +218,9 @@ def fpl_uncertainty_reduce(out: torch.Tensor, lo: Sequence[int],
 
     ``lo``/``up``: per-spatial-axis selection margins (the composed
     inverse-transform crop). Masking the per-voxel maps equals
-    crop-then-reduce, since variance and entropy are per voxel. Only the
-    two scalars cross to the host."""
+    crop-then-reduce, since variance and entropy are per voxel. Returns
+    two 0-d tensors on the logits' device (f32, int64); nothing waits for
+    the device: a fetch reads them."""
     out = out.float()
     probs = torch.softmax(out, 1)                         # [N, K, *img]
     img = tuple(out.shape[2:])
@@ -218,7 +237,38 @@ def fpl_uncertainty_reduce(out: torch.Tensor, lo: Sequence[int],
         means = probs.mean(0)                             # [K, *img]
         unc = -torch.sum(means * torch.log(means + 1e-6), 0)
     boundary = torch.sum((unc > 0.01) & mask)
-    return float(vars_sum), int(boundary)
+    return vars_sum, boundary
+
+
+def _fetch_of(tensors: Sequence[torch.Tensor], form: Callable,
+              staged: Sequence[torch.Tensor] = ()) -> Callable:
+    """The zero-argument fetch of ``tensors`` (all on one device).
+
+    On a card each tensor is copied into pinned host memory behind the
+    work that makes it (``non_blocking``) and an event is recorded after
+    the copies on the current stream; nothing waits here. The fetch waits
+    on that event and returns ``form`` of the host arrays. ``staged``: the
+    pinned buffers the dispatch's host-to-device copies read, held until
+    the fetch has seen the event (which follows those copies in stream
+    order). On the CPU the tensors are the result, so the fetch returns
+    ``form`` of them at once."""
+    if tensors[0].device.type == 'cpu':
+        result = form([t.numpy() for t in tensors])
+        return lambda: result
+    stream = torch.cuda.current_stream(tensors[0].device)
+    hosts = []
+    for t in tensors:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    done = torch.cuda.Event()
+    done.record(stream)
+
+    def fetch():
+        done.synchronize()
+        return form([h.numpy() for h in hosts])
+    fetch.staged = staged        # alive until the fetch is dropped
+    return fetch
 
 
 class PassFold:
@@ -262,6 +312,17 @@ class Inferer:
     same with a leading ``[N]``. A predictor that returns a list of heads
     gets a list of such results, one per head. ``mesh``: shard over its
     ranks (module docstring).
+
+    Asynchronous serving, the JAX package's API (``engine/infer.py:986-
+    1369`` there): ``run_async``, ``run_batch_async``, ``run_passes_async``
+    and ``run_fpl_uncertainty`` dispatch all the device work, the copy of
+    the volume in (staged in pinned memory, ``non_blocking``) and of the
+    result out (into pinned memory, ``non_blocking``), and return a
+    zero-argument ``fetch`` that waits for an event recorded after that
+    copy and formats the result. Nothing on the way waits for the card, so
+    a caller dispatches volume i+1 before it fetches volume i. ``run`` /
+    ``run_batch`` / ``run_passes`` are ``*_async(...)()``. On the CPU the
+    work is done when the call returns, and the fetch returns at once.
     """
 
     def __init__(self, config: dict, device, patch_chunk: int = 2,
@@ -287,11 +348,20 @@ class Inferer:
             raise ValueError('Undefined multiscale_counter {0}'.format(
                 self.counter_mode))
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray, staged: list) -> torch.Tensor:
+        """``arr`` on the device in the compute dtype. To a card: cast into
+        a pinned buffer (appended to ``staged``, which the dispatch's fetch
+        holds) and copied with ``non_blocking``, so the copy does not wait
+        for the device."""
         t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-        if self.compute_dtype is not None:
-            t = t.to(self.compute_dtype)
-        return t.to(self.device)
+        if self.device.type == 'cpu':
+            return t if self.compute_dtype is None else t.to(
+                self.compute_dtype)
+        pinned = torch.empty(t.shape, dtype=self.compute_dtype or t.dtype,
+                             pin_memory=True)
+        pinned.copy_(t)
+        staged.append(pinned)
+        return pinned.to(self.device, non_blocking=True)
 
     def _tta(self) -> bool:
         tta_mode = self.config.get('tta_mode', 0)
@@ -367,21 +437,21 @@ class Inferer:
             for out in outs:
                 self.mesh.all_reduce(out)
         dim_starts = dim_start_lists(img_shape, window, stride)
-        cnts = [_coverage(dim_starts, window, win, o.shape[2:])
+        cnts = [_coverage(dim_starts, window, win, o.shape[2:], self.device)
                 for win, o in zip(wins, outs)]
         if self.counter_mode == 'reference' and len(outs) > 1:
             cnts = [len(outs) * _nearest_resize(cnts[0], o.shape[2:])
                     for o in outs]
-        return [o / torch.clamp_min(torch.from_numpy(c).to(self.device),
-                                    1e-6) for o, c in zip(outs, cnts)]
+        return [o / torch.clamp_min(c, 1e-6) for o, c in zip(outs, cnts)]
 
-    def _dev(self, predictor: Callable, images: np.ndarray,
+    def _dev(self, predictor: Callable, images: np.ndarray, staged: list,
              copies: int = 1, shard_windows: bool = True
              ) -> List[torch.Tensor]:
         """Device logits ``[N, K, *img_i]`` f32 per head of ``images [N, C,
         *img]`` (``copies`` > 1: N = ``copies`` passes over one volume), TTA
         and overlap averaging done, before the output head; the windows
-        sharded over the mesh unless ``shard_windows`` is False."""
+        sharded over the mesh unless ``shard_windows`` is False. The pinned
+        buffer of the volume's copy goes into ``staged``."""
         tta = self._tta()
         img_shape = tuple(images.shape[2:])
         _, window, stride = self._resolve_sw(img_shape)
@@ -397,7 +467,7 @@ class Inferer:
             if any(pads):
                 images = np.pad(images, [(0, 0), (0, 0)]
                                 + [(0, p) for p in pads], mode='reflect')
-        vols = self._to_device(images)
+        vols = self._to_device(images, staged)
         if copies > 1:
             vols = vols.expand((copies,) + tuple(vols.shape[1:]))
         n = vols.shape[0]
@@ -416,14 +486,20 @@ class Inferer:
         """A single head as itself, several as a list."""
         return heads[0] if len(heads) == 1 else heads
 
-    def _host(self, heads: List[torch.Tensor]):
-        return self._one([_finalize(h, self.output_mode).cpu().numpy()
-                          for h in heads])
+    def _fetch(self, heads: List[torch.Tensor], staged: list) -> Callable:
+        """The output head on the device, then the fetch of the result."""
+        return _fetch_of([_finalize(h, self.output_mode) for h in heads],
+                         self._one, staged)
+
+    def run(self, predictor: Callable, image):
+        return self.run_async(predictor, image)()
 
     @traced('infer_run')
     @torch.inference_mode()
-    def run(self, predictor: Callable, image):
-        return self._host(self._run_dev(predictor, image))
+    def run_async(self, predictor: Callable, image) -> Callable:
+        """Dispatch ``run`` and return its fetch (class docstring)."""
+        staged = []
+        return self._fetch(self._run_dev(predictor, image, staged), staged)
 
     @traced('infer_run_logits')
     @torch.inference_mode()
@@ -431,40 +507,50 @@ class Inferer:
         """``run`` before the output head, kept on the device: the
         overlap- and TTA-averaged logits ``[1, K, *img]`` f32 (a list for a
         multi-head predictor; in-training validation computes its loss and
-        dice there)."""
-        return self._one(self._run_dev(predictor, image))
+        dice there). The volume's pinned staging buffer is released at
+        return: torch's caching host allocator keeps a block that a
+        ``non_blocking`` copy read until that copy has run."""
+        return self._one(self._run_dev(predictor, image, []))
 
-    def _run_dev(self, predictor: Callable, image) -> List[torch.Tensor]:
+    def _run_dev(self, predictor: Callable, image,
+                 staged: list) -> List[torch.Tensor]:
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('inference processes one volume at a time')
-        return self._dev(predictor, image)
+        return self._dev(predictor, image, staged)
+
+    def run_batch(self, predictor: Callable, images):
+        return self.run_batch_async(predictor, images)()
 
     @traced('infer_run_batch')
     @torch.inference_mode()
-    def run_batch(self, predictor: Callable, images):
+    def run_batch_async(self, predictor: Callable, images) -> Callable:
         """Batched serving: N same-shape volumes ``[N, C, *img]`` through
-        one sliding window whose forwards carry every volume's windows.
-        Voxel-identical to N ``run`` calls up to the convolution library's
-        choice of algorithm at the larger batch. Runs volume by volume
+        one sliding window whose forwards carry every volume's windows;
+        returns the fetch of the ``[N, ...]`` result. Voxel-identical to N
+        ``run`` calls up to the convolution library's choice of algorithm
+        at the larger batch. Runs volume by volume (one fetch for all)
         when N is 1, the sliding window is off, or the volume fits in one
         window. On a mesh each rank runs its share of the volumes."""
         images = np.asarray(images)
         n = images.shape[0]
         if n == 0:
             raise ValueError('run_batch needs at least one volume')
+        staged = []
         if n == 1 or not self._windowed(images.shape[2:]):
-            per = [self._run_dev(predictor, images[i:i + 1])
+            per = [self._run_dev(predictor, images[i:i + 1], staged)
                    for i in range(n)]
-            return self._host([torch.cat(h, 0) for h in zip(*per)])
-        if self.mesh is None:
-            return self._host(self._dev(predictor, images))
-        outs = self._dev(predictor, images[_padded_share(n, self.mesh)],
-                         shard_windows=False)
-        return self._host([self.mesh.gather_rows(o)[:n] for o in outs])
+            heads = [torch.cat(h, 0) for h in zip(*per)]
+        elif self.mesh is None:
+            heads = self._dev(predictor, images, staged)
+        else:
+            outs = self._dev(predictor, images[_padded_share(n, self.mesh)],
+                             staged, shard_windows=False)
+            heads = [self.mesh.gather_rows(o)[:n] for o in outs]
+        return self._fetch(heads, staged)
 
-    def _passes_dev(self, group_predictor, image,
-                    n_passes: int) -> List[torch.Tensor]:
+    def _passes_dev(self, group_predictor, image, n_passes: int,
+                    staged: list) -> List[torch.Tensor]:
         image = np.asarray(image)
         if image.shape[0] != 1:
             raise ValueError('run_passes folds passes over one volume')
@@ -475,27 +561,33 @@ class Inferer:
         if self.mesh is None:
             pred = (group_predictor.take(range(n_passes)) if fold
                     else group_predictor)
-            return self._dev(pred, image, copies=n_passes)
+            return self._dev(pred, image, staged, copies=n_passes)
         if not fold:
             raise TypeError('passes sharded over a mesh need a PassFold: '
                             'each rank makes its passes from their seeds')
         mine = _padded_share(n_passes, self.mesh)
-        outs = self._dev(group_predictor.take(mine), image,
+        outs = self._dev(group_predictor.take(mine), image, staged,
                          copies=len(mine), shard_windows=False)
         return [self.mesh.gather_rows(o)[:n_passes] for o in outs]
 
+    def run_passes(self, group_predictor: Callable, image, n_passes: int):
+        return self.run_passes_async(group_predictor, image, n_passes)()
+
     @traced('infer_run_passes')
     @torch.inference_mode()
-    def run_passes(self, group_predictor: Callable, image,
-                   n_passes: int):
+    def run_passes_async(self, group_predictor: Callable, image,
+                         n_passes: int) -> Callable:
         """Fold ``n_passes`` stochastic passes over one volume into one
-        batched inference. ``group_predictor`` treats its patch batch as
-        ``n_passes`` contiguous groups, group i under pass i's randomness
-        (the network given ``n_passes`` ``dropout_generators``), or is a
-        ``PassFold`` of ``n_passes`` seeds (required on a mesh). Row i of
-        the result is pass i's full inference (TTA, sliding window, overlap
-        averaging): the same as ``run`` with pass i's predictor."""
-        return self._host(self._passes_dev(group_predictor, image, n_passes))
+        batched inference; returns the fetch of the ``[n_passes, ...]``
+        result. ``group_predictor`` treats its patch batch as ``n_passes``
+        contiguous groups, group i under pass i's randomness (the network
+        given ``n_passes`` ``dropout_generators``), or is a ``PassFold`` of
+        ``n_passes`` seeds (required on a mesh). Row i of the result is
+        pass i's full inference (TTA, sliding window, overlap averaging):
+        the same as ``run`` with pass i's predictor."""
+        staged = []
+        return self._fetch(self._passes_dev(group_predictor, image,
+                                            n_passes, staged), staged)
 
     @traced('infer_run_fpl_uncertainty')
     @torch.inference_mode()
@@ -505,12 +597,28 @@ class Inferer:
         ``(vars_sum, boundary)`` of ``n_passes`` folded passes, reduced on
         the device (``fpl_uncertainty_reduce``), as the JAX package's
         ``run_fpl_uncertainty`` returns one (``engine/infer.py:1305-1352``
-        there). ``margins``: optional ``(margin_lower, margin_upper)`` per
-        spatial axis, the composed crop of the test chain's inverse
-        transforms. The agent applies the ``1 if boundary < 50 else
-        vars_sum / boundary`` rule."""
-        out = self._passes_dev(group_predictor, image, n_passes)[0]
+        there): only the two scalars cross back. ``margins``: optional
+        ``(margin_lower, margin_upper)`` per spatial axis, the composed
+        crop of the test chain's inverse transforms. The agent applies the
+        ``1 if boundary < 50 else vars_sum / boundary`` rule."""
+        staged = []
+        out = self._passes_dev(group_predictor, image, n_passes, staged)[0]
         dim = out.dim() - 2
         lo, up = margins if margins is not None else ([0] * dim, [0] * dim)
-        pair = fpl_uncertainty_reduce(out, lo, up)
-        return lambda: pair
+        return _fetch_of(fpl_uncertainty_reduce(out, lo, up),
+                         lambda pair: (float(pair[0]), int(pair[1])), staged)
+
+    def run_mc(self, predictor_factory: Callable, image,
+               seeds: Sequence[int]) -> List:
+        """MC-dropout passes, unfused: one full inference (TTA, sliding
+        window) per seed with ``predictor_factory(seed)``'s predictor, all
+        dispatched before the first fetch, so the card runs them back to
+        back (the JAX package's ``run_mc``, ``engine/infer.py:1354-1369``
+        there). Returns one ``run`` result per seed. The folded pass
+        (``run_passes`` of a ``PassFold``) is the production path; this is
+        its oracle: with ``predictor_factory(s) = PassFold(net, [s],
+        device).take([0])`` result i is row i of ``run_passes`` on
+        ``PassFold(net, seeds, device)``."""
+        fetches = [self.run_async(predictor_factory(s), image)
+                   for s in seeds]
+        return [fetch() for fetch in fetches]

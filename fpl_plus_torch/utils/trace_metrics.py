@@ -133,12 +133,37 @@ def device_busy_us(trace_root: str) -> float:
     return _union_us(_device_spans(trace_root))
 
 
+def _device_work(trace_root: str) -> List[dict]:
+    return [e for e in trace_events(trace_root)
+            if e.get('ph') == 'X' and e.get('cat') in DEVICE_WORK]
+
+
 def kernel_busy_us(trace_root: str) -> float:
     """The time (us) the device ran work in the newest trace: the union of
     its kernels, copies and fills. Beside ``device_busy_us`` it gives the
     device's idle share inside the spans."""
-    return _union_us(e for e in trace_events(trace_root)
-                     if e.get('ph') == 'X' and e.get('cat') in DEVICE_WORK)
+    return _union_us(_device_work(trace_root))
+
+
+def device_window_us(trace_root: str) -> float:
+    """The time (us) from the newest trace's first device work (kernel,
+    copy or fill) to the end of its last, gaps included; 0 without device
+    work. Beside ``kernel_busy_us`` it gives the device's idle share over
+    the whole traced window, between the spans as well as inside them."""
+    work = _device_work(trace_root)
+    if not work:
+        return 0.0
+    return (max(float(e['ts']) + float(e['dur']) for e in work)
+            - min(float(e['ts']) for e in work))
+
+
+def span_gaps_us(trace_root: str, name: str) -> List[float]:
+    """The gaps (us) between consecutive device-lane spans ``name`` of the
+    newest trace, in start order: each span's start less the end of the one
+    before (negative where they overlap)."""
+    spans = [e for e in _device_spans(trace_root) if e['name'] == name]
+    return [float(b['ts']) - float(a['ts']) - float(a['dur'])
+            for a, b in zip(spans, spans[1:])]
 
 
 def start_trace(profile_dir: str, device, rank: Optional[int] = None):

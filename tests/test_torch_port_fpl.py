@@ -3,8 +3,8 @@ post-processing against the JAX package.
 
 * (a) The device reduction ``fpl_uncertainty_reduce`` against JAX
   ``_fpl_uncertainty_reduce`` on the same fixed logits (K = 2 and 3, nonzero
-  margins): ``vars_sum`` to rtol 1e-5 (both f32, summed in other orders),
-  ``boundary`` equal.
+  margins): two 0-d tensors (f32, int64); ``vars_sum`` to rtol 1e-5 (both
+  f32, summed in other orders), ``boundary`` equal.
 * (b) With network dropout 0, ``Inferer.run_passes`` (6 folded passes) and
   ``Inferer.run_batch`` (2 volumes) against JAX ``run_passes_async`` /
   ``run_batch`` on the same weights: atol = rtol = 1e-4 (two convolution
@@ -78,12 +78,15 @@ def test_reduction_matches_jax(k):
         jnp.asarray(up, jnp.int32))
     vars_t, boundary_t = fpl_uncertainty_reduce(torch.from_numpy(logits),
                                                 lo, up)
-    assert isinstance(vars_t, float) and isinstance(boundary_t, int)
+    # two 0-d tensors on the logits' device, read by the caller's fetch
+    assert vars_t.shape == boundary_t.shape == ()
+    assert (vars_t.dtype, boundary_t.dtype) == (torch.float32, torch.int64)
+    vars_t, boundary_t = float(vars_t), int(boundary_t)
     np.testing.assert_allclose(vars_t, float(vars_j), rtol=1e-5)
     assert boundary_t == int(boundary_j)
     # the margins matter: an unmasked reduction counts more voxels
-    assert fpl_uncertainty_reduce(torch.from_numpy(logits), [0] * 3,
-                                  [0] * 3)[1] > boundary_t > 0
+    assert int(fpl_uncertainty_reduce(torch.from_numpy(logits), [0] * 3,
+                                      [0] * 3)[1]) > boundary_t > 0
 
 
 # -- (b) folds against JAX, (c) fold against sequential ---------------------
@@ -240,7 +243,8 @@ def test_fpl_stage_matches_jax_cli(workspace, monkeypatch):  # noqa: F811
         jax_infer._fpl_uncertainty_reduce, seen_j,
         lambda o: (float(o[0]), int(o[1]))))
     monkeypatch.setattr(torch_infer, 'fpl_uncertainty_reduce', _recording(
-        torch_infer.fpl_uncertainty_reduce, seen_t, tuple))
+        torch_infer.fpl_uncertainty_reduce, seen_t,
+        lambda o: (float(o[0]), int(o[1]))))
     assert jax_main(['test', _cfg(root, 'fj.cfg', 'out_fj', dropout=zero,
                                   extra=_fpl(root, 'fj'))]) == 0
     assert torch_main(['test', _cfg(root, 'ft.cfg', 'out_ft', dropout=zero,

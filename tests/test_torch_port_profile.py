@@ -275,6 +275,22 @@ def test_trace_readers_match_jax_on_the_same_events(tmp_path, gz):
     assert port_tm.kernel_busy_us(str(tmp_path / 'torch')) == 71.75
 
 
+def test_device_window_and_span_gaps(tmp_path):
+    """The device's window runs from the first kernel's start (100) to the
+    last one's end (260 + 12.5 / 2); the gaps between same-named spans
+    follow their start order, whatever the file's."""
+    for tag, programs in (('fwd', PROGRAMS), ('rev', PROGRAMS[::-1])):
+        root = str(tmp_path / tag)
+        write_torch_trace(root, programs)
+        assert port_tm.device_window_us(root) == 166.25
+        assert port_tm.span_gaps_us(root, 'infer_run') == [50.0]
+        assert port_tm.span_gaps_us(root, 'train_step') == [10.0, 23.0]
+        assert port_tm.span_gaps_us(root, 'validation_forward') == []
+    write_torch_trace(str(tmp_path / 'host'), PROGRAMS, device=False)
+    assert port_tm.device_window_us(str(tmp_path / 'host')) == 0.0
+    assert port_tm.span_gaps_us(str(tmp_path / 'host'), 'infer_run') == []
+
+
 def test_nested_and_overlapping_spans_count_once(tmp_path):
     # JAX: the 'XLA Ops' children of a program are not summed; torch: a
     # span nested in another, and an overlapping pair, are a union
