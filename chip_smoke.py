@@ -222,7 +222,9 @@ then runs, each phase failing the script on any error:
     the peak above the stage's start within phase 4's plus one volume's
     TTA accumulator; each loop's wall per volume (host clock, first
     dispatch to last save), the device's idle share from the first to the
-    last kernel, the gaps between ``infer_run`` spans and the peaks; then
+    last kernel, the gaps between ``infer_run`` spans, the peaks and the
+    host's median dispatch, fetch wait and save per volume; both loops
+    again without the profiler (wall and host split, labels equal); then
     ``fpl = True`` pipelined and serial (the sorted uncertainty lists
     equal, wall per volume), ``test_batch_size = 3`` across loader batches
     (the first batch's labels equal to phase 8's), and one dispatch each of
@@ -4795,10 +4797,12 @@ def serial_infer(self):
 
 @contextlib.contextmanager
 def host_timeline(sink):
-    """Host clock of the stage's volume loop: ``sink['start']`` gets the
-    time of each Inferer dispatch, ``sink['end']`` the time each volume's
-    work ends (``save_outputs`` returns, or an FPL fetch returns). The loop's
-    wall is from the first dispatch to the last end."""
+    """Host clock of the stage's volume loop, into lists of ``sink``:
+    ``start``, the time of each Inferer dispatch; ``end``, the time each
+    volume's work ends (``save_outputs`` returns, or an FPL fetch
+    returns); ``dispatch_s``, ``fetch_s`` and ``save_s``, the host seconds
+    inside each dispatch, each fetch (its wait for the card) and each
+    save. The loop's wall is from the first dispatch to the last end."""
     from fpl_plus_torch.agents.agent_seg import SegmentationAgent
     from fpl_plus_torch.engine.infer import Inferer
     swapped = []
@@ -4808,34 +4812,39 @@ def host_timeline(sink):
         swapped.append((cls, name, orig))
         setattr(cls, name, wrap(orig))
 
-    def dispatch(orig):
-        def inner(self, *args):
-            sink['start'].append(time.perf_counter())
-            return orig(self, *args)
-        return inner
+    def dispatch(ends_volume):
+        def wrap(orig):
+            def inner(self, *args):
+                t0 = time.perf_counter()
+                sink['start'].append(t0)
+                fetch = orig(self, *args)
+                sink['dispatch_s'].append(time.perf_counter() - t0)
 
-    def fpl_dispatch(orig):
-        def inner(self, *args):
-            sink['start'].append(time.perf_counter())
-            fetch = orig(self, *args)
-
-            def fetched():
-                out = fetch()
-                sink['end'].append(time.perf_counter())
-                return out
-            return fetched
-        return inner
+                def fetched():
+                    t1 = time.perf_counter()
+                    out = fetch()
+                    t2 = time.perf_counter()
+                    sink['fetch_s'].append(t2 - t1)
+                    if ends_volume:
+                        sink['end'].append(t2)
+                    return out
+                return fetched
+            return inner
+        return wrap
 
     def save(orig):
         def inner(self, data):
+            t0 = time.perf_counter()
             out = orig(self, data)
-            sink['end'].append(time.perf_counter())
+            t1 = time.perf_counter()
+            sink['save_s'].append(t1 - t0)
+            sink['end'].append(t1)
             return out
         return inner
 
     for name in ('run_async', 'run_batch_async'):
-        swap(Inferer, name, dispatch)
-    swap(Inferer, 'run_fpl_uncertainty', fpl_dispatch)
+        swap(Inferer, name, dispatch(False))
+    swap(Inferer, 'run_fpl_uncertainty', dispatch(True))
     swap(SegmentationAgent, 'save_outputs', save)
     try:
         yield sink
@@ -4861,7 +4870,8 @@ def agent_loop(loop):
 def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
     """(35) The pipelined test stage on phase 4's workspace with 5 more
     volumes (8 of 40x160x272): the f32 device-label ``cli test`` under
-    ``profile_dir``, pipelined and through ``serial_infer``; ``fpl = True``
+    ``profile_dir``, pipelined and through ``serial_infer``, then both
+    without the profiler; ``fpl = True``
     pipelined and serial; ``test_batch_size = 3`` across loader batches;
     then dispatches under ``torch.cuda.set_sync_debug_mode('error')``."""
     import fpl_plus_torch.agents.agent_seg as agent_seg
@@ -4883,7 +4893,8 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
         if trace:
             extra += '\nprofile_dir = ' + trace_dir
         cfg = write_cfg(root, tag, batch=batch, extra=extra, csv=PIPE_CSV)
-        times = {'start': [], 'end': []}
+        times = {k: [] for k in ('start', 'end', 'dispatch_s', 'fetch_s',
+                                 'save_s')}
         with agent_loop(loop), host_timeline(times), \
                 counting_forwards() as forwards:
             base = start_peak()
@@ -4903,6 +4914,9 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
         out['launches'] += launches
         r = {'launches': launches, 'peak': peak,
              'wall_s': max(times['end']) - min(times['start'])}
+        for k in ('dispatch_s', 'fetch_s', 'save_s'):
+            r[k[:-2] + '_ms'] = (float(np.median(times[k])) * 1e3
+                                 if times[k] else None)
         if 'fpl = True' not in extra:
             r['labels'] = [load_image_as_nd_array(os.path.join(
                 root, 'out_' + tag, 'gen_target_test8',
@@ -4926,10 +4940,15 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
 
     label = {loop: stage('pipe_' + loop, loop, trace=True)
              for loop in ('pipelined', 'serial')}
-    for i, (a, b) in enumerate(zip(label['pipelined']['labels'],
-                                   label['serial']['labels'])):
-        check(np.array_equal(a, b), 'volume {0}: pipelined and serial labels '
-              'differ on {1} voxels'.format(i, int((a != b).sum())))
+    # the same without the profiler: the wall a user sees
+    plain = {loop: stage('plain_' + loop, loop)
+             for loop in ('pipelined', 'serial')}
+    for i, (a, b, c, d) in enumerate(zip(*(
+            r['labels'] for r in (label['pipelined'], label['serial'],
+                                  plain['pipelined'], plain['serial'])))):
+        check(all(np.array_equal(a, x) for x in (b, c, d)),
+              'volume {0}: pipelined and serial labels differ on {1} '
+              'voxels'.format(i, int((a != b).sum())))
     for i, want in enumerate(serving['float32']['labels']):
         check(np.array_equal(label['pipelined']['labels'][i], want),
               'volume {0}: pipelined labels differ from phase 4'.format(i))
@@ -4998,18 +5017,25 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
     out['wall_s'] = time.perf_counter() - t_phase
 
     for loop, r in label.items():
+        q = plain[loop]
         print('pipeline (phase 35) {0} label stage: {1} volumes, wall {2:.4f} '
               's per volume (first dispatch to last save, host clock, under '
               'the profiler), device idle {3:.2%} of the window from the '
               'first to the last kernel ({4:.1f} us, busy {5:.1f} us), '
               'infer_run spans {6} us, gaps between them {7} us (median '
-              '{8:.1f}), peak {9:.3f} GiB, {10} launches'.format(
+              '{8:.1f}), peak {9:.3f} GiB, {10} launches; host median per '
+              'volume: dispatch {11:.2f} ms, fetch wait {12:.2f} ms, save '
+              '{13:.2f} ms. Without the profiler: wall {14:.4f} s per '
+              'volume; dispatch {15:.2f} ms, fetch wait {16:.2f} ms, save '
+              '{17:.2f} ms'.format(
                   loop, PIPE_VOLUMES, r['wall_s'] / PIPE_VOLUMES, r['idle'],
                   r['window_us'], r['kernel_busy_us'],
                   ['{0:.1f}'.format(x) for x in r['span_us']],
                   ['{0:.1f}'.format(x) for x in r['gaps_us']],
                   float(np.median(r['gaps_us'])), r['peak'] / 2 ** 30,
-                  r['launches']))
+                  r['launches'], r['dispatch_ms'], r['fetch_ms'],
+                  r['save_ms'], q['wall_s'] / PIPE_VOLUMES, q['dispatch_ms'],
+                  q['fetch_ms'], q['save_ms']))
     print('pipeline (phase 35): labels pipelined = serial on all {0} volumes, '
           '= phase 4 on its {1}; peak pipelined {2:.3f} GiB, serial {3:.3f} '
           'GiB, phase 4 {4:.3f} GiB (limit {5:.3f})'.format(
@@ -5018,12 +5044,16 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
               serving['float32']['peak'] / 2 ** 30, limit / 2 ** 30))
     print('pipeline (phase 35) fpl: wall per volume pipelined {0:.4f} s, '
           'serial {1:.4f} s (first dispatch to last fetch); lists equal; '
-          'peak {2:.3f} / {3:.3f} GiB; {4} + {5} launches'.format(
+          'peak {2:.3f} / {3:.3f} GiB; {4} + {5} launches; host median per '
+          'volume, pipelined / serial: dispatch {6:.2f} / {7:.2f} ms, fetch '
+          'wait {8:.2f} / {9:.2f} ms'.format(
               fpl['pipelined']['wall_s'] / PIPE_VOLUMES,
               fpl['serial']['wall_s'] / PIPE_VOLUMES,
               fpl['pipelined']['peak'] / 2 ** 30,
               fpl['serial']['peak'] / 2 ** 30, fpl['pipelined']['launches'],
-              fpl['serial']['launches']))
+              fpl['serial']['launches'], fpl['pipelined']['dispatch_ms'],
+              fpl['serial']['dispatch_ms'], fpl['pipelined']['fetch_ms'],
+              fpl['serial']['fetch_ms']))
     print('pipeline (phase 35) test_batch_size {0}: wall per volume {1:.4f} '
           's, labels of the first batch = phase 8, agreement with per-volume '
           '{2}, {3} launches; sync-checked dispatches of run_async, '
@@ -5033,6 +5063,8 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
                              batch['launches'], out['wall_s']))
     out.update(label={k: {f: v for f, v in r.items() if f != 'labels'}
                       for k, r in label.items()},
+               plain={k: {f: v for f, v in r.items() if f != 'labels'}
+                      for k, r in plain.items()},
                fpl={k: {f: v for f, v in r.items() if f != 'list'}
                     for k, r in fpl.items()},
                batch={f: v for f, v in batch.items() if f != 'labels'},
@@ -5326,6 +5358,7 @@ def main():
         'profile_wall_s': profile['wall_s'],
         'pipeline_launches': pipeline['launches'],
         'pipeline_label': pipeline['label'],
+        'pipeline_plain': pipeline['plain'],
         'pipeline_fpl': pipeline['fpl'],
         'pipeline_batch': pipeline['batch'],
         'pipeline_batch_agree': pipeline['batch_agree'],
