@@ -10,9 +10,10 @@ then runs, each phase failing the script on any error:
 2. kernel: ``dsbn_prelu`` (Triton) against ``dsbn_prelu_reference`` (plain
    PyTorch) on the card, at every (C, spatial) shape a flagship window
    forward gives it (batch 8 = 4 TTA variants x patch_chunk 2) plus a ragged
-   one, domains 0 and 1, f32 and bf16; CUDA-event times of the kernel, of the
-   plain version, and of F.batch_norm + F.prelu (a two-call yardstick: no
-   single PyTorch call computes this function), beside the byte bound;
+   one, domains 0 and 1, f32 and bf16; CUDA-event times of the kernel beside
+   the byte bound, and at the largest shape, f32 and bf16, of the plain
+   version and of F.batch_norm + F.prelu (a two-call yardstick: no single
+   PyTorch call computes this function);
 3. forward: one [1,1,28,128,128] eval window of the full-width UNet2D5_dsbn
    (random weights from a seeded torch.Generator, non-trivial running
    statistics, domain 1) on the card (kernel) and on the CPU (plain), TF32 off;
@@ -230,7 +231,21 @@ then runs, each phase failing the script on any error:
     (the first batch's labels equal to phase 8's), and one dispatch each of
     ``run_async``, ``run_batch_async`` and ``run_fpl_uncertainty`` under
     ``torch.cuda.set_sync_debug_mode('error')``, fetched after: none may
-    wait for the card.
+    wait for the card;
+36. the driver entry points (``fpl_plus_torch/dryrun.py``): ``entry()``'s
+    forward on the card (``[1, 2, 28, 128, 128]``, 18 launches; on a seeded
+    window its logits against the same module through the plain version,
+    phase 3's tolerance); the public ``dryrun_multichip(1)`` at the JAX dry
+    run's shapes; then the whole four-stage pipeline at NET_CFG (2 cases
+    per domain of 40x160x272, window = stride = crop [28,128,128], 4-flip
+    TTA, batch 2 + 2, 2 iterations resumed to 4, a validation every 2)
+    under ``[training] multihost = True`` and the ``FPLX_*`` triple of one
+    process (an NCCL group of one rank per CLI run): stage 2's labels
+    voxel for voxel and its FPL list (the same order, rel 1e-5) against a
+    plain one-process ``cli test`` of the generator's checkpoint, launches
+    equal to 18 x the eval forwards, the evaluation CSVs of stages 1 and 4
+    finite, each stage's wall and the total beside the card's name and
+    power limit.
 
 Phases 4, 7, 8, 17 and 34 time each Inferer dispatch that the stage makes
 (``run_async``, ``run_fpl_uncertainty``, ``run_batch_async``,
@@ -239,7 +254,7 @@ call and when it returns, read when the stage has ended: the stream's time
 from the end of the work before the dispatch to the end of its copy out,
 with no wait inside the pipelined stage.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33-35) sets
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33-36) sets
 the launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -463,15 +478,22 @@ def kernel_phase(dev, rate, batch=BATCH):
         torch.cuda.empty_cache()
     big = shapes[0]
     tables = random_tables(big[1], gen, dev)
-    x = torch.randn(big, generator=cuda_gen, device=dev)
-    plain_ms = cuda_ms(lambda: dsbn_prelu_reference(x, *tables, DOMAIN,
-                                                    alpha))
+    x32 = torch.randn(big, generator=cuda_gen, device=dev)
     g, b, m, v = (t[DOMAIN] for t in tables)
-    yard_ms = cuda_ms(lambda: F.prelu(
-        F.batch_norm(x, m, v, g, b, False, 0.0, 1e-5), alpha))
-    print('kernel {0} float32: plain {1:.4f} ms, F.batch_norm+F.prelu '
-          '{2:.4f} ms'.format(list(big), plain_ms, yard_ms))
-    return rows, max_err, big, plain_ms, yard_ms
+    for dtype in (torch.float32, torch.bfloat16):
+        # the yardstick at bf16: a bf16 input with the f32 tables (PyTorch's
+        # mixed-type batch norm), the slope in the input's type
+        x, a = x32.to(dtype), alpha.to(dtype)
+        row = rows[(big, dtype)]
+        row['plain_ms'] = cuda_ms(lambda: dsbn_prelu_reference(
+            x, *tables, DOMAIN, alpha))
+        row['yard_ms'] = cuda_ms(lambda: F.prelu(
+            F.batch_norm(x, m, v, g, b, False, 0.0, 1e-5), a))
+        print('kernel {0} {1}: plain {2:.4f} ms, F.batch_norm+F.prelu '
+              '{3:.4f} ms'.format(list(big), str(dtype).split('.')[-1],
+                                  row['plain_ms'], row['yard_ms']))
+    return (rows, max_err, big, rows[(big, torch.float32)]['plain_ms'],
+            rows[(big, torch.float32)]['yard_ms'])
 
 
 def init_random_(net, seed):
@@ -5072,6 +5094,199 @@ def pipeline_phase(root, dev, serving, batched, names, fwd_per_volume):
     return out
 
 
+# -- phase 36: the driver entry points and the whole pipeline ---------------
+@contextlib.contextmanager
+def plain_dsbn():
+    """The networks' DSBN+PReLU through ``dsbn_prelu_reference`` (plain
+    PyTorch) inside the block."""
+    import fpl_plus_torch.models.dsbn as dsbn_module
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu_reference
+    real = dsbn_module.dsbn_prelu
+    dsbn_module.dsbn_prelu = dsbn_prelu_reference
+    try:
+        yield
+    finally:
+        dsbn_module.dsbn_prelu = real
+
+
+def entry_phase(dev):
+    """Phase 36 (a): ``fpl_plus_torch.dryrun.entry()`` on the card: its
+    example window gives ``[1, 2, 28, 128, 128]`` logits with 18 kernel
+    launches; on a seeded random window (TF32 off) its logits against the
+    same module's forward through the plain version, by phase 3's
+    tolerance."""
+    from fpl_plus_torch import dryrun
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    fn, (x, domain) = dryrun.entry(str(dev))
+    check(x.device == dev and tuple(x.shape) == (1, 1) + tuple(WINDOW),
+          'entry args {0} on {1}'.format(tuple(x.shape), x.device))
+    dsbn_prelu.launches = 0              # the main path's count starts here
+    out = fn(x, domain)
+    torch.cuda.synchronize()
+    launches = dsbn_prelu.launches
+    check(tuple(out.shape) == (1, 2) + tuple(WINDOW),
+          'entry output {0}'.format(tuple(out.shape)))
+    check(launches == 18, 'entry forward launched {0} kernels, not 18'
+          .format(launches))
+    check(bool(torch.isfinite(out).all()), 'entry logits not finite')
+    gen = torch.Generator().manual_seed(SEED + 360)
+    probe = torch.randn((1, 1) + tuple(WINDOW), generator=gen).to(dev)
+    with tf32_off():
+        got = fn(probe, domain).cpu()
+        with plain_dsbn():
+            want = fn(probe, domain).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= FWD_TOL * max(1.0, scale),
+          'entry forward off its plain version by {0:.3g}'.format(err))
+    print('entry (phase 36): output {0}, {1} kernel launches; on a random '
+          'window vs the plain version max abs err {2:.3g} (|logit| max '
+          '{3:.3g}, tolerance {4} x max(1, |logit|), TF32 off)'.format(
+              list(out.shape), launches, err, scale, FWD_TOL))
+    return {'launches': launches, 'max_abs_err': err}
+
+
+def dryrun_phase(dev):
+    """Phase 36 (b): the public ``dryrun_multichip(1)`` on the card at the
+    JAX dry run's shapes; launches equal to 18 x the eval forwards."""
+    from fpl_plus_torch import dryrun
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    t0 = time.perf_counter()
+    with counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        dryrun.dryrun_multichip(1, str(dev))
+        launches = dsbn_prelu.launches
+    wall = time.perf_counter() - t0
+    check(forwards[0] > 0 and launches == 18 * forwards[0],
+          'dry run: {0} launches for {1} forwards'.format(launches,
+                                                          forwards[0]))
+    print('dryrun_multichip(1) (phase 36): {0} eval forwards, {1} kernel '
+          'launches, wall {2:.1f} s'.format(forwards[0], launches, wall))
+    return {'launches': launches, 'forwards': forwards[0], 'wall_s': wall}
+
+
+def oracle_cfg(root, name, **kw):
+    """A phase-36 config that pins the generator's checkpoint
+    (``dryrun_2.pt``) and writes under ``root/oracle``: one process, no
+    group."""
+    from fpl_plus_torch import dryrun
+    path = dryrun.write_cfg(root, name, 1, net_cfg=NET_CFG, window=WINDOW,
+                            stride=WINDOW, **kw)
+    with open(path) as f:
+        text = f.read()
+    ckpt = os.path.join(root, 'model', 'dryrun', 'dryrun_2.pt')
+    for old, new in (('ckpt_mode = 0', 'ckpt_mode = 2\nckpt_name = ' + ckpt),
+                     ('output_dir = {0}/result'.format(root),
+                      'output_dir = {0}/oracle'.format(root))):
+        check(old in text, 'no {0!r} in {1}'.format(old, path))
+        text = text.replace(old, new)
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def pipeline_labels(path):
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    return {n: load_image_as_nd_array(os.path.join(path, n))['data_array']
+            for n in sorted(os.listdir(path)) if n.endswith('.nii.gz')}
+
+
+def full_pipeline_phase(root, dev, smi):
+    """Phase 36 (c): the four stages of ``fpl_plus_torch.dryrun`` at
+    NET_CFG (2 cases per domain of 40x160x272; window = stride = crop
+    [28,128,128], 4-flip TTA; batch 2 + 2, 2 iterations then resumed to 4,
+    a validation every 2) under ``[training] multihost = True`` and the
+    ``FPLX_*`` triple of one process: an NCCL group of one rank in each of
+    the 4 CLI runs. Stage 2's labels and FPL list against a plain
+    one-process ``cli test`` of the generator's checkpoint; launches equal
+    to 18 x the eval forwards; each stage's wall; the CLI's evaluation
+    CSVs of stages 1 and 4 finite."""
+    from fpl_plus_torch import cli, dryrun
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.parallel.multihost import free_local_port
+    seen = []
+    t0 = time.perf_counter()
+    with fplx_env(free_local_port()), watching_barriers(seen), \
+            counting_forwards() as forwards:
+        dsbn_prelu.launches = 0          # the main path's count starts here
+        out = dryrun._pipeline(root, 1, dev, NET_CFG, VOLUME, WINDOW, WINDOW,
+                               extra_training='multihost = True')
+        launches = dsbn_prelu.launches
+    wall = time.perf_counter() - t0
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    check(seen and all(b == backend and w == 1 for _, b, w in seen),
+          'barriers {0}'.format(seen))
+    check(forwards[0] > 0 and launches == 18 * forwards[0],
+          '{0} launches for {1} eval forwards'.format(launches, forwards[0]))
+    for tag in ('pseudo_target', 'final_dir'):
+        for metric in ('dice', 'assd'):
+            vals = [float(r[1]) for r in read_csv(os.path.join(
+                out[tag], 'test_tumor_{0}_all.csv'.format(metric)))[1:]]
+            check(vals and all(np.isfinite(vals)),
+                  '{0} {1} {2}'.format(tag, metric, vals))
+    # the oracle: one plain process, the generator's checkpoint
+    unc = os.path.join(root, 'oracle_unc.npy')
+    for name, kw in (('oracle_t.cfg', {}),
+                     ('oracle_f.cfg', {'test_csv': 'd1cyc_train_img.csv',
+                                       'domian': 0}),
+                     ('oracle_w.cfg', {'fpl': 'True', 'extra_testing': (
+                         'test_time_dropout = True\n'
+                         'fpl_uncertainty_sorted = {0}\n'.format(unc))})):
+        check(cli.main(['test', oracle_cfg(root, name, **kw)],
+                       device=str(dev)) == 0, name)
+    voxels = 0
+    for sub in ('dryrun_d1_train_img', 'dryrun_d1cyc_train_img'):
+        got = pipeline_labels(os.path.join(root, 'result', sub))
+        want = pipeline_labels(os.path.join(root, 'oracle', sub))
+        check(list(got) == list(want) == ['case0.nii.gz', 'case1.nii.gz'],
+              '{0}: {1} vs {2}'.format(sub, list(got), list(want)))
+        for n in want:
+            check(got[n].shape == (1,) + VOLUME
+                  and np.array_equal(got[n], want[n]),
+                  '{0}/{1}: labels differ on {2} voxels'.format(
+                      sub, n, int((got[n] != want[n]).sum())))
+            voxels += got[n].size
+    got = np.load(out['uncertainty'], allow_pickle=True)
+    want = np.load(unc, allow_pickle=True)
+    check([str(e[1]) for e in got] == [str(e[1]) for e in want],
+          'FPL list order {0} vs {1}'.format(got[:, 1], want[:, 1]))
+    fpl_rel = max(abs(float(a[0][0]) - float(b[0][0]))
+                  / max(abs(float(b[0][0])), 1e-30)
+                  for a, b in zip(got, want))
+    check(fpl_rel <= 1e-5, 'FPL list off by rel {0:.3g}'.format(fpl_rel))
+    walls = out['walls']
+    for stage in sorted(walls):
+        print('pipeline (phase 36) stage {0}: wall {1:.2f} s'.format(
+            stage, walls[stage]))
+    total = sum(walls.values())
+    print('pipeline (phase 36): 4 stages at NET_CFG, {0} cases of {1} per '
+          'domain, '
+          'NCCL group of one rank per CLI run: {2:.2f} s in all ({3}); {4} '
+          'eval forwards, {5} kernel launches; stage-2 labels equal to one '
+          'plain process on {6} voxels, FPL list in the same order within '
+          'rel {7:.3g}; barriers {8}; phase wall {9:.1f} s'.format(
+              dryrun.CASES, list(VOLUME), total, smi, forwards[0],
+              launches, voxels, fpl_rel, len(seen), wall))
+    return {'launches': launches, 'forwards': forwards[0], 'walls': walls,
+            'total_s': total, 'fpl_rel': fpl_rel, 'wall_s': wall}
+
+
+def driver_phase(root, dev, smi):
+    """Phase 36: (a) ``entry()``, (b) ``dryrun_multichip(1)``, (c) the
+    full-width pipeline and its oracle."""
+    t0 = time.perf_counter()
+    entry = entry_phase(dev)
+    dry = dryrun_phase(dev)
+    os.makedirs(os.path.join(root, 'pipeline36'))
+    full = full_pipeline_phase(os.path.join(root, 'pipeline36'), dev, smi)
+    wall = time.perf_counter() - t0
+    launches = entry['launches'] + dry['launches'] + full['launches']
+    print('driver (phase 36): {0} kernel launches, phase wall {1:.1f} s'
+          .format(launches, wall))
+    return {'entry': entry, 'dryrun': dry, 'full': full,
+            'launches': launches, 'wall_s': wall}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -5139,6 +5354,7 @@ def main():
                                 fwd_per_volume)
         pipeline = pipeline_phase(ws, dev, serving, batched, names,
                                   fwd_per_volume)
+        driver = driver_phase(ws, dev, smi)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
@@ -5239,7 +5455,8 @@ def main():
                      + scale_out['launches'] + multihost_cli['launches']
                      + nccl['launches']
                      + sum(r['launches'] for r in paradigm_nccl.values())
-                     + profile['launches'] + pipeline['launches']),
+                     + profile['launches'] + pipeline['launches']
+                     + driver['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
@@ -5252,6 +5469,15 @@ def main():
         'ms_per_volume': {p: v[0] for p, v in per_volume.items()},
         'bound_ms_per_volume': {p: v[1] for p, v in per_volume.items()},
         'volume_ms': {p: v[2] for p, v in per_volume.items()},
+        'bf16': {'ms': rows[(big, torch.bfloat16)]['ms'],
+                 'bound_ms': rows[(big, torch.bfloat16)]['bound_ms'],
+                 'plain_ms': rows[(big, torch.bfloat16)]['plain_ms'],
+                 'yardstick_ms': rows[(big, torch.bfloat16)]['yard_ms'],
+                 'fpl_ms': rows[(big48, torch.bfloat16)]['ms'],
+                 'fpl_bound_ms': rows[(big48, torch.bfloat16)]['bound_ms'],
+                 'fpl_plain_ms': rows[(big48, torch.bfloat16)]['plain_ms'],
+                 'fpl_yardstick_ms': rows[(big48,
+                                           torch.bfloat16)]['yard_ms']},
         'fpl_shape': list(big48),
         'fpl_ms': rows[(big48, torch.float32)]['ms'],
         'fpl_plain_ms': plain48, 'fpl_yardstick_ms': yard48,
@@ -5363,6 +5589,17 @@ def main():
         'pipeline_batch': pipeline['batch'],
         'pipeline_batch_agree': pipeline['batch_agree'],
         'pipeline_wall_s': pipeline['wall_s'],
+        'driver_launches': {k: driver[k]['launches']
+                            for k in ('entry', 'dryrun', 'full')},
+        'driver_forwards': {k: driver[k]['forwards']
+                            for k in ('dryrun', 'full')},
+        'entry_max_abs_err': driver['entry']['max_abs_err'],
+        'dryrun_wall_s': driver['dryrun']['wall_s'],
+        'pipeline4_stage_s': driver['full']['walls'],
+        'pipeline4_total_s': driver['full']['total_s'],
+        'pipeline4_fpl_rel': driver['full']['fpl_rel'],
+        'pipeline4_wall_s': driver['full']['wall_s'],
+        'driver_wall_s': driver['wall_s'],
     }
     print(json.dumps({'kernels': [entry]}))
     print(json.dumps({'ok': True, 'device': {

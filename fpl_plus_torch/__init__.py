@@ -37,6 +37,10 @@ Layer map (mirrors reference layers L0-L10, see SURVEY.md):
                image ops, post-processing, precision policy, scalar curves
   device.py    explicit device resolution (the card unless told otherwise)
   cli.py       command-line entry points (L8)
+  dryrun.py    the driver entry points: the flagship forward (``entry``)
+               and the four-stage pipeline over n ranks
+               (``dryrun_multichip``; ``python -m fpl_plus_torch.dryrun``)
+  run.sh       the FPL+ pipeline's commands, as the JAX package's run.sh
 
 Ported so far: the training stage in all the segmentation agent's
 variants (joint with gradient accumulation, alternating with the entropy
@@ -48,8 +52,10 @@ and the FPL MC-dropout uncertainty pass — the evaluation reports, the FPL
 weight tools, and every network, segmentation loss and transform of the
 JAX package's registries; the SSL, WSL, NLL and classification agents; the
 loader's worker pool, the converter of JAX checkpoints and the host tools;
-scale-out of the segmentation agent (the paradigm agents' data-parallel
-steps are queued in ROADMAP.md).
+scale-out of every agent but the classifier; the profiling surface; the
+asynchronous serving surface; the driver entry points and the agents'
+customization hooks. ``tests/test_torch_port_surface.py`` holds every
+public name of the JAX package against the port.
 """
 
 __version__ = "0.1.0"

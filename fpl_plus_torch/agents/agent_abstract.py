@@ -31,6 +31,15 @@ segmentation agent and those built on it (SSL, WSL, NLL, CLSLSR) run
 over a mesh; an agent without a data-parallel step (``data_parallel``
 False: the classification agent) raises ``NotImplementedError`` under a
 mesh or in a multi-process run instead of training on one device.
+
+Customization hooks (the reference's PyMIC hooks, the JAX package's
+``agents/agent_abstract.py:84-100``): ``set_transform_dict`` replaces the
+registry every chain is built from (default ``TransformDict``);
+``set_network_dict``, ``set_loss_dict`` and ``set_inferer`` hand the
+agent its network and loss registries and its logits Inferer (None: the
+agent's default); ``set_datasets(test_set=...)`` serves a dataset of the
+caller's in the test stage. ``get_stage_dataset_from_config(stage)``
+builds the dataset of one of ``STAGES`` from the config.
 """
 from __future__ import annotations
 
@@ -46,7 +55,8 @@ from fpl_plus_torch.io.dataset import NiftyDataset
 from fpl_plus_torch.io.loader import DataLoader
 from fpl_plus_torch.parallel import multihost
 from fpl_plus_torch.parallel.mesh import mesh_size_from_config, stage_mesh
-from fpl_plus_torch.transforms.trans_dict import Compose, TransformDict
+from fpl_plus_torch.transforms.trans_dict import (TransformDict,
+                                                  build_transforms)
 
 
 def scaled_out(config: dict, stage: str, device) -> bool:
@@ -71,6 +81,9 @@ NOT_DATA_PARALLEL = (
     'silence); set mesh_devices = 1 and a single-entry gpus list, without '
     'multihost')
 
+STAGES = ('1_train', '1_valid', '1_test', '2_train', '2_valid', '2_test',
+          'test')
+
 
 class NetRunAgent(ABC):
     # True for an agent whose train and test stages run sharded over a mesh
@@ -87,6 +100,12 @@ class NetRunAgent(ABC):
             raise NotImplementedError(NOT_DATA_PARALLEL.format(
                 type(self).__name__))
         self._mesh = False   # resolved by get_mesh()
+        # the customization hooks (set_*): None means the agent's default
+        self.transform_dict = TransformDict
+        self.net_dict = None
+        self.loss_dict = None
+        self.inferer = None
+        self.test_set = None
         self.transform_list = []
         self.test_loader = None
         self.train_loaders = []
@@ -108,6 +127,33 @@ class NetRunAgent(ABC):
         if self.get_mesh() is not None:
             multihost.barrier(tag)
 
+    # -- customization hooks (reference agent_abstract.py:67-134; the JAX
+    # package's agents/agent_abstract.py:84-100) ------------------------------
+    def set_network_dict(self, net_dict):
+        self.net_dict = net_dict
+
+    def set_loss_dict(self, loss_dict):
+        self.loss_dict = loss_dict
+
+    def set_transform_dict(self, transform_dict):
+        self.transform_dict = transform_dict
+
+    def set_inferer(self, inferer):
+        self.inferer = inferer
+
+    def set_datasets(self, train_set=None, valid_set=None, test_set=None):
+        """Serve ``test_set`` in the test stage. An injected train or valid
+        set raises: the train stage builds one loader per domain from the
+        manifests, and the JAX package stores both sets without reading
+        them (ROADMAP.md, section 3)."""
+        if train_set is not None or valid_set is not None:
+            raise NotImplementedError(
+                'set_datasets: only test_set is served; the train stage '
+                'reads the [dataset] manifests of each domain (the JAX '
+                'package ignores an injected train or valid set in '
+                'silence)')
+        self.test_set = test_set
+
     def build_transform(self, stage_key: str):
         """Compose the transform chain of a stage ('train', 'valid' or
         'test'; a missing valid chain falls back to the train chain) and
@@ -122,14 +168,11 @@ class NetRunAgent(ABC):
             return None
         params = dict(data_cfg)
         params['task'] = self.task_type()
-        transform_list = []
-        for name in names:
-            if name not in TransformDict:
-                raise ValueError('Undefined transform {0}'.format(name))
-            transform_list.append(TransformDict[name](params))
+        transform_list, chain = build_transforms(names, params,
+                                                 self.transform_dict)
         if stage_key == 'test':
             self.transform_list = transform_list
-        return Compose(transform_list)
+        return chain
 
     def train_workers(self) -> int:
         """The train loaders' worker processes: ``[dataset] num_workder``
@@ -156,17 +199,20 @@ class NetRunAgent(ABC):
         cache_gb = self.config['dataset'].get('cache_gb', 2.0)
         return int(cache_gb * (1 << 30)) // max(workers, 1)
 
-    def stage_dataset(self, stage: str, workers: int = 0) -> NiftyDataset:
-        """The dataset of ``stage`` ('1_train', '2_valid', 'test', ...),
-        read by ``workers`` processes. Train and valid stages revisit their
-        rows every epoch, so they get the decoded-volume and
-        transform-prefix caches (``cache_bytes``); the one-pass test stage
-        gets none."""
+    def get_stage_dataset_from_config(self, stage: str) -> NiftyDataset:
+        """The dataset of ``stage`` (one of ``STAGES``). A train stage is
+        read by ``train_workers()`` processes. Train and valid stages
+        revisit their rows every epoch, so they get the decoded-volume and
+        transform-prefix caches (``cache_bytes``, split over the workers);
+        the one-pass test stage gets none."""
+        if stage not in STAGES:
+            raise ValueError('Undefined dataset stage {0!r}'.format(stage))
         data_cfg = self.config['dataset']
         real_stage = stage.split('_')[-1]
         csv_file = data_cfg.get(stage + '_csv', None)
         if csv_file is None:
             csv_file = data_cfg[real_stage + '_csv']
+        workers = self.train_workers() if real_stage == 'train' else 0
         cache_bytes = self.cache_bytes(stage, workers)
         return NiftyDataset(root_dir=data_cfg['root_dir'], csv_file=csv_file,
                             modal_num=data_cfg.get('modal_num', 1),
@@ -204,17 +250,20 @@ class NetRunAgent(ABC):
             workers = self.train_workers()
             for d in range(1, self.num_domains + 1):
                 self.train_loaders.append(DataLoader(
-                    self.stage_dataset('{0}_train'.format(d), workers),
+                    self.get_stage_dataset_from_config(
+                        '{0}_train'.format(d)),
                     batch_size=self.host_batch_size(), shuffle=True,
                     num_workers=workers, seed=self.random_seed + d))
                 self.valid_loaders.append(DataLoader(
-                    self.stage_dataset('{0}_valid'.format(d)),
+                    self.get_stage_dataset_from_config(
+                        '{0}_valid'.format(d)),
                     batch_size=data_cfg.get('valid_batch_size', 1),
                     seed=self.random_seed))
         else:
+            if self.test_set is None:
+                self.test_set = self.get_stage_dataset_from_config('test')
             self.test_loader = DataLoader(
-                self.stage_dataset('test'),
-                batch_size=data_cfg.get('test_batch_size', 1),
+                self.test_set, batch_size=data_cfg.get('test_batch_size', 1),
                 seed=self.random_seed)
 
     def task_type(self) -> str:

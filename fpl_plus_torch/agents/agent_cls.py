@@ -24,6 +24,12 @@ for ``cls_nexcl``) and, with ``save_probability``, ``*_prob.csv``.
 ``pretrained_path`` into the backbone (the head, and the first
 convolution when ``input_chns != 3``, stay fresh); without a path it warns
 and keeps the random weights: nothing is downloaded.
+
+The network comes from ``net_dict`` (default ``TorchClsNetDict``) and the
+loss from ``loss_dict`` (default ``ClsLossDict``), both replaceable
+through ``set_network_dict`` / ``set_loss_dict``, as in the JAX package
+(``agents/agent_cls.py:36-37,60-62``); a module assigned before
+``create_network`` is kept.
 """
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ def _images(data, device) -> torch.Tensor:
 class ClassificationAgent(NetRunAgent):
     def __init__(self, config: dict, stage: str, device):
         super().__init__(config, stage, device)
+        self.loss_dict = ClsLossDict
+        self.net_dict = TorchClsNetDict
         self.module = None
         self.task = config['dataset'].get('task_type', 'cls')
         self.train_dtype = resolve_dtype(
@@ -63,8 +71,8 @@ class ClassificationAgent(NetRunAgent):
     def task_type(self) -> str:
         return 'classification'
 
-    def stage_dataset(self, stage: str,
-                      workers: int = 0) -> ClassificationDataset:
+    def get_stage_dataset_from_config(self, stage: str
+                                      ) -> ClassificationDataset:
         data_cfg = self.config['dataset']
         real_stage = stage.split('_')[-1]
         csv_file = data_cfg.get(stage + '_csv', None) or data_cfg.get(
@@ -80,9 +88,9 @@ class ClassificationAgent(NetRunAgent):
         net_cfg = self.config['network']
         net_name = net_cfg['net_type']
         if self.module is None:
-            if net_name not in TorchClsNetDict:
+            if net_name not in self.net_dict:
                 raise ValueError('Undefined network {0}'.format(net_name))
-            self.module = TorchClsNetDict[net_name](net_cfg)
+            self.module = self.net_dict[net_name](net_cfg)
             if net_cfg.get('pretrain', False):
                 path = net_cfg.get('pretrained_path', None)
                 if path:
@@ -99,9 +107,9 @@ class ClassificationAgent(NetRunAgent):
     def _loss_calculator(self):
         loss_name = self.config['training'].get('loss_type',
                                                 'CrossEntropyLoss')
-        if loss_name not in ClsLossDict:
+        if loss_name not in self.loss_dict:
             raise ValueError('Undefined loss function {0}'.format(loss_name))
-        return ClsLossDict[loss_name](self.config['training'])
+        return self.loss_dict[loss_name](self.config['training'])
 
     def _targets(self, data) -> np.ndarray:
         """The ground truth of a batch: ``label`` [N] (cls) or

@@ -96,6 +96,15 @@ scalars, predictions and the FPL list, and barriers separate its writes
 from the other ranks' reads (after the train stage's pointers, before the
 test stage resolves its checkpoint).
 
+Customization hooks (the JAX package's ``agents/agent_seg.py:80,105-107,
+496,752-758,834-835,1069``): the train and validation losses come from
+``loss_dict`` (default ``SegLossDict``, ``set_loss_dict``); an Inferer
+given through ``set_inferer`` is the logits Inferer of validation, the FPL
+pass, the host path and ensembles, while the device-label save path keeps
+its own label Inferer; a module assigned to ``agent.module`` before
+``create_network`` is kept. ``net_dict`` is not read, as in JAX: a network
+of one's own is set as ``agent.module``.
+
 Profiling (the JAX package's ``agents/agent_seg.py:548-550,618-621`` and
 ``:845-847,1050-1051``; ``utils/trace_metrics.py``): ``[training]
 profile_dir`` traces the train loop from before its batch thread starts to
@@ -130,7 +139,7 @@ from fpl_plus_torch.engine.train import (AlternatingTrainStep,
                                          primary_head, train_dice)
 from fpl_plus_torch.io.image_io import save_nd_array_as_image
 from fpl_plus_torch.io.loader import prefetch_iter, repeat_loader
-from fpl_plus_torch.losses import create_loss_calculator
+from fpl_plus_torch.losses import SegLossDict, create_loss_calculator
 from fpl_plus_torch.models.registry import create_network, param_count
 from fpl_plus_torch.models.unet2d5_dsbn import Dis
 from fpl_plus_torch.parallel import (make_sharded_train_step, replicate,
@@ -289,9 +298,10 @@ class SegmentationAgent(NetRunAgent):
 
     def __init__(self, config: dict, stage: str, device: torch.device):
         super().__init__(config, stage, device)
+        self.loss_dict = SegLossDict
         self.module = None
         self.postprocessor = None
-        self.inferer = None
+        self._valid_loss = None
         train_cfg = config.get('training', {})
         self.fpl_uda = train_cfg.get('train_fpl_uda', False)
         self.train_dtype = resolve_dtype(train_cfg.get('precision',
@@ -352,7 +362,7 @@ class SegmentationAgent(NetRunAgent):
         """The segmenter's step, picked as the JAX package's
         ``build_train_step`` picks it."""
         cfg_t = self.config['training']
-        loss = create_loss_calculator(self.config)
+        loss = create_loss_calculator(self.config, self.loss_dict)
         common = dict(fpl_uda=self.fpl_uda, compute_dtype=self.train_dtype)
         if cfg_t.get('dual_consistency', False):
             return DualConsistencyStep(self.module, loss, optimizer, schedule,
@@ -653,11 +663,10 @@ class SegmentationAgent(NetRunAgent):
         primary head (the JAX agent's validation predictor keeps the first
         head only, on which its deep-supervision loss raises: ROADMAP.md,
         section 3)."""
-        if self.inferer is None:
-            self.inferer = Inferer(dict(self.config['testing'],
-                                        output_mode='logits'), self.device,
-                                   mesh=self.get_mesh())
-            self._valid_loss = create_loss_calculator(self.config)
+        inferer = self._logits_inferer()
+        if self._valid_loss is None:
+            self._valid_loss = create_loss_calculator(self.config,
+                                                      self.loss_dict)
         module = self.module
         per_domain = []
         module.eval()
@@ -672,8 +681,8 @@ class SegmentationAgent(NetRunAgent):
                         data['label_prob'], np.float32)).to(self.device)
                     for i in range(images.shape[0]):
                         with span('validation_forward'):
-                            pred = self.inferer.run_logits(predictor,
-                                                           images[i:i + 1])
+                            pred = inferer.run_logits(predictor,
+                                                      images[i:i + 1])
                         with torch.inference_mode():
                             y = label_prob[i:i + 1]
                             losses.append(self._valid_loss(
@@ -751,15 +760,24 @@ class SegmentationAgent(NetRunAgent):
         return cast_infer_module(module.to(self.device).eval(),
                                  self.infer_precision)
 
+    def _logits_inferer(self) -> Inferer:
+        """The logits Inferer of validation, the FPL pass, the host path and
+        ensembles: the one ``set_inferer`` gave, else the stage's own, kept
+        in ``self.inferer`` (the JAX package's ``_make_inferer``,
+        ``agents/agent_seg.py:752-753,834-835,1069`` there)."""
+        if self.inferer is None:
+            self.inferer = Inferer(dict(self.config['testing'],
+                                        output_mode='logits'), self.device,
+                                   mesh=self.get_mesh())
+        return self.inferer
+
     def _inferers(self):
-        """The label-head Inferer of the device-label path and the logits
-        Inferer of the host path."""
-        cfg_test = self.config['testing']
-        mesh = self.get_mesh()
-        return (Inferer(dict(cfg_test, output_mode='label'), self.device,
-                        mesh=mesh),
-                Inferer(dict(cfg_test, output_mode='logits'), self.device,
-                        mesh=mesh))
+        """The device-label save path's own label Inferer (JAX's
+        ``_label_inferer``, never replaced by ``set_inferer``) and the
+        logits Inferer (``_logits_inferer``)."""
+        return (Inferer(dict(self.config['testing'], output_mode='label'),
+                        self.device, mesh=self.get_mesh()),
+                self._logits_inferer())
 
     # -- inference ------------------------------------------------------------
     def infer(self):
@@ -854,7 +872,7 @@ class SegmentationAgent(NetRunAgent):
                         pred = fold if fpl else fold.take([0])
                     volume_index += 1
                     if fpl and margins is not None:
-                        fetch = label_inf.run_fpl_uncertainty(
+                        fetch = logits_inf.run_fpl_uncertainty(
                             pred, images, FPL_PASSES, margins)
                         if pending_fpl is not None:
                             finish_fpl(pending_fpl)

@@ -55,7 +55,6 @@ import torch
 
 from fpl_plus_torch.agents.agent_seg import SegmentationAgent, head_predictor
 from fpl_plus_torch.engine import ckpt as ckpt_lib
-from fpl_plus_torch.engine.infer import Inferer
 from fpl_plus_torch.io.dataset import NiftyDataset
 from fpl_plus_torch.io.image_io import (load_image_as_nd_array,
                                         save_nd_array_as_image)
@@ -265,8 +264,7 @@ class NLLCLSLSR(SegmentationAgent):
             raise ValueError('CLSLSR inference uses a single checkpoint '
                              '(ckpt_mode 0/1/2)')
         module = self._loaded_module(ckpt_name)
-        inferer = Inferer(dict(cfg_test, output_mode='logits'), self.device,
-                          mesh=self.get_mesh())
+        inferer = self._logits_inferer()   # a set Inferer (JAX :299-300)
         predictor = head_predictor(module, domain_label)
 
         label_paths = self._label_paths()

@@ -71,7 +71,7 @@ from fpl_plus_torch.models.common import resize_linear
 from fpl_plus_torch.models.multi_net import make_binet
 from fpl_plus_torch.models.registry import param_count
 from fpl_plus_torch.parallel.mesh import active_mesh, batch_segments
-from fpl_plus_torch.transforms.trans_dict import Compose, TransformDict
+from fpl_plus_torch.transforms.trans_dict import build_transforms
 from fpl_plus_torch.utils.ramps import get_rampup_ratio
 
 
@@ -451,7 +451,7 @@ class ParadigmAgent(SegmentationAgent):
     def _build_step(self, optimizer, schedule):
         teacher = self._make_teacher() if self.uses_teacher else None
         return self.step_class(self.module, create_loss_calculator(
-            self.config), optimizer, schedule,
+            self.config, self.loss_dict), optimizer, schedule,
             compute_dtype=self.train_dtype, teacher=teacher,
             **self.step_kwargs())
 
@@ -501,11 +501,9 @@ class SSLSegAgent(ParadigmAgent):
         names = data_cfg.get('train_transform_unlab', None)
         transform = None
         if names:
-            params = dict(data_cfg, task=self.task_type())
-            for name in names:
-                if name not in TransformDict:
-                    raise ValueError('Undefined transform {0}'.format(name))
-            transform = Compose([TransformDict[n](params) for n in names])
+            transform = build_transforms(
+                names, dict(data_cfg, task=self.task_type()),
+                self.transform_dict)[1]
         workers = self.train_workers()
         dataset = NiftyDataset(
             root_dir=data_cfg['root_dir'],

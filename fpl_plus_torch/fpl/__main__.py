@@ -25,8 +25,8 @@ from fpl_plus_torch.fpl.weights import (compute_pixel_weights,
                                       write_image_weight_csv)
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO)
+def build_parser() -> argparse.ArgumentParser:
+    """The sub-commands' argument parser (``main`` parses with it)."""
     parser = argparse.ArgumentParser(prog='python -m fpl_plus_torch.fpl')
     sub = parser.add_subparsers(dest='cmd', required=True)
 
@@ -70,8 +70,12 @@ def main(argv=None):
                             '(data/preprocess_bst.py:35-49)')
     p.add_argument('image'), p.add_argument('label')
     p.add_argument('out_image'), p.add_argument('out_label')
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
     if args.cmd == 'pixel-weight':
         compute_pixel_weights(args.pseudo_target, args.pseudo_fake_source,
                               args.output)

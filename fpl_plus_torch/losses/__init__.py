@@ -28,19 +28,21 @@ SegLossDict = {
 }
 
 
-def create_loss_calculator(config):
-    """Build the training loss from the [training] section: a list-valued
-    ``loss_type`` becomes a CombinedLoss with ``loss_weight``; ``[network]
-    deep_supervise`` wraps it in a DeepSuperviseLoss with ``[network]
-    deep_supervise_weight``."""
+def create_loss_calculator(config, loss_dict=None):
+    """Build the training loss from the [training] section through
+    ``loss_dict`` (default ``SegLossDict``; an agent passes its own,
+    ``set_loss_dict``): a list-valued ``loss_type`` becomes a CombinedLoss
+    with ``loss_weight``; ``[network] deep_supervise`` wraps it in a
+    DeepSuperviseLoss with ``[network] deep_supervise_weight``."""
+    loss_dict = SegLossDict if loss_dict is None else loss_dict
     train_cfg = config['training']
     loss_name = train_cfg['loss_type']
     if isinstance(loss_name, (list, tuple)):
-        base_loss = CombinedLoss(train_cfg, SegLossDict)
-    elif loss_name not in SegLossDict:
+        base_loss = CombinedLoss(train_cfg, loss_dict)
+    elif loss_name not in loss_dict:
         raise ValueError('Undefined loss function {0}'.format(loss_name))
     else:
-        base_loss = SegLossDict[loss_name](train_cfg)
+        base_loss = loss_dict[loss_name](train_cfg)
     net_cfg = config.get('network', {})
     if net_cfg.get('deep_supervise', False):
         return DeepSuperviseLoss({

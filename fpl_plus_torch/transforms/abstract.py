@@ -12,6 +12,9 @@ import json
 
 import numpy as np
 
+# keys that spatial transforms must modify consistently
+SPATIAL_KEYS = ('label', 'pixel_weight', 'image1')
+
 
 class AbstractTransform(object):
     inverse = False
@@ -81,7 +84,7 @@ def apply_spatial(sample, fn, task, label_order0_fn=None):
     if task == 'segmentation':
         if 'label' in sample:
             sample['label'] = (label_order0_fn or fn)(sample['label'])
-        for key in ('pixel_weight', 'image1'):
+        for key in SPATIAL_KEYS[1:]:
             if key in sample:
                 sample[key] = fn(sample[key])
     return sample

@@ -25,7 +25,7 @@ import random
 import numpy as np
 from scipy import ndimage
 
-from fpl_plus_torch.transforms.abstract import AbstractTransform
+from fpl_plus_torch.transforms.abstract import SPATIAL_KEYS, AbstractTransform
 from fpl_plus_torch.utils.image_process import (
     crop_nd_volume_with_bounding_box as _crop, get_nd_bounding_box)
 
@@ -68,7 +68,7 @@ class CenterCrop(AbstractTransform):
         crop_min, crop_max = self._crop_param(sample)
         sample['image'] = _crop(sample['image'], crop_min, crop_max)
         if self.task == 'segmentation':
-            for key in ('label', 'pixel_weight', 'image1'):
+            for key in SPATIAL_KEYS:
                 if key in sample:
                     cmax = [sample[key].shape[0]] + list(crop_max[1:])
                     sample[key] = _crop(sample[key], crop_min, cmax)

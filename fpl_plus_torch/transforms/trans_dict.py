@@ -1,5 +1,7 @@
 """Transform registry (parity with reference trans_dict.py:42-66 and the
-JAX package's ``transforms/trans_dict.py``, the same 24 names)."""
+JAX package's ``transforms/trans_dict.py``, the same 24 names) and the
+chain builder every stage's chain goes through (``build_transforms``; an
+agent passes its own registry, ``set_transform_dict``)."""
 from __future__ import annotations
 
 from fpl_plus_torch.transforms.crop import (CenterCrop, CropWithBoundingBox,
@@ -56,3 +58,16 @@ class Compose(object):
         for t in self.transforms:
             sample = t(sample)
         return sample
+
+
+def build_transforms(names, params, registry=None):
+    """Instantiate the chain ``names`` from the flat ``params`` through
+    ``registry`` (default ``TransformDict``); returns ``(transform_list,
+    Compose)``. An unknown name raises ``ValueError``."""
+    registry = TransformDict if registry is None else registry
+    transform_list = []
+    for name in names:
+        if name not in registry:
+            raise ValueError('Undefined transform {0}'.format(name))
+        transform_list.append(registry[name](params))
+    return transform_list, Compose(transform_list)

@@ -16,7 +16,7 @@ import numpy as np
 from fpl_plus_torch.config.parser import parse_config
 from fpl_plus_torch.io.image_io import load_image_as_nd_array
 from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_image
-from fpl_plus_torch.transforms.trans_dict import TransformDict
+from fpl_plus_torch.transforms.trans_dict import build_transforms
 
 
 def get_transform_list(trans_config_file: str):
@@ -24,12 +24,7 @@ def get_transform_list(trans_config_file: str):
     the section's parameters."""
     params = parse_config(trans_config_file)['dataset']
     params['task'] = 'segmentation'
-    transform_list = []
-    for name in params['transform']:
-        if name not in TransformDict:
-            raise ValueError('Undefined transform {0}'.format(name))
-        transform_list.append(TransformDict[name](params))
-    return transform_list
+    return build_transforms(params['transform'], params)[0]
 
 
 def preprocess_with_transform(transforms, img_in_name: str,

@@ -1,8 +1,9 @@
 """PyTorch port, CLI: the test stage of ``fpl_plus_torch.cli`` against the
 JAX CLI's on one set of weights.
 
-A seeded tiny workspace (the port's own copy of the dryrun workspace of
-``__graft_entry__.py``: noisy volumes with a bright cube) is labelled twice:
+A seeded tiny workspace (the dry run's, ``fpl_plus_torch.dryrun.
+write_workspace``, with three cases: noisy volumes with a bright cube; the
+target domain's images are the test set) is labelled twice:
 by the JAX CLI from a msgpack checkpoint and by the port's CLI on the CPU
 from the same weights saved through the bridge as a reference-layout ``.pt``
 checkpoint. Both resolve the checkpoint through the shared
@@ -19,8 +20,8 @@ import pytest
 import torch
 
 from fpl_plus_torch.cli import main as torch_main
+from fpl_plus_torch.dryrun import write_workspace
 from fpl_plus_torch.io.image_io import load_image_as_nd_array
-from fpl_plus_torch.io.nifti import ImageGeometry, NiftiImage, write_nifti
 from fpl_plus_torch.utils.convert import state_dict_from_jax
 from fpl_plus_torch.models.registry import create_network as torch_network
 from tests.test_torch_port_models import (SMALL, center_head,  # noqa: F401
@@ -66,23 +67,17 @@ infer_unroll_max = 0
 
 
 def _write_workspace(root):
-    """Three noisy 12x24x24 volumes with a bright cube; returns the first,
-    z-scored and reflect-padded as the test chain feeds it to the net."""
-    rs = np.random.RandomState(5)
-    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(1.0, 1.0, 1.5),
-                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
-    os.makedirs(os.path.join(root, 'd1', 'img'))
-    rows, vols = [], []
-    for case in range(3):
-        vol = rs.normal(0, 1, size=(12, 24, 24)).astype(np.float32)
-        vol[4:8, 8:16, 8:16] += 2.5
-        name = 'd1/img/case{0}.nii.gz'.format(case)
-        write_nifti(NiftiImage(vol, geom), os.path.join(root, name))
-        rows.append(name)
-        vols.append(vol)
+    """The dry run's workspace with three cases of 12x24x24, its target
+    images (a bright cube in noise) listed in ``d1_test_img.csv``; returns
+    the first, z-scored and reflect-padded as the test chain feeds it to
+    the net."""
+    write_workspace(root, cases=3)
+    rows = ['d1/img/case{0}.nii.gz'.format(case) for case in range(3)]
     with open(os.path.join(root, 'd1_test_img.csv'), 'w') as f:
         f.write('image\n' + '\n'.join(rows) + '\n')
-    z = (vols[0] - vols[0].mean()) / vols[0].std()
+    vol = load_image_as_nd_array(os.path.join(root, rows[0]))[
+        'data_array'][0]
+    z = (vol - vol.mean()) / vol.std()
     return np.pad(z, ((2, 2), (4, 4), (4, 4)), 'reflect')[None, None]
 
 
@@ -194,19 +189,12 @@ test_evaluation_image_pair = {root}/cube_pairs.csv
 def test_inference_writes_evaluation_reports(workspace):
     """``main(['inference', cfg])`` with an ``[evaluation]`` section runs
     the test stage and then ``eva_main``, as the JAX CLI does: the dice
-    CSV of the written labels against the cubes' ground truth."""
+    CSV of the written labels against the cubes' ground truth (the
+    workspace's target labels)."""
     import csv
     root = workspace
-    geom = ImageGeometry(origin=(0., 0., 0.), spacing=(1.0, 1.0, 1.5),
-                         direction=(1, 0, 0, 0, 1, 0, 0, 0, 1))
-    os.makedirs(os.path.join(root, 'd1', 'lab'), exist_ok=True)
-    lab = np.zeros((12, 24, 24), np.int16)
-    lab[4:8, 8:16, 8:16] = 1
-    rows = []
-    for case in range(3):
-        name = 'd1/lab/case{0}.nii.gz'.format(case)
-        write_nifti(NiftiImage(lab, geom), os.path.join(root, name))
-        rows.append('{0},case{1}.nii.gz\n'.format(name, case))
+    rows = ['d1/lab/case{0}.nii.gz,case{0}.nii.gz\n'.format(case)
+            for case in range(3)]
     with open(os.path.join(root, 'cube_pairs.csv'), 'w') as f:
         f.write('ground_truth,segmentation\n' + ''.join(rows))
     cfg = _cfg(root, 'eval.cfg', 'out_eval',
