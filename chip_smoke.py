@@ -10,29 +10,31 @@ then runs, each phase failing the script on any error:
 2. kernel: ``dsbn_prelu`` (Triton) against ``dsbn_prelu_reference`` (plain
    PyTorch) on the card, at every (C, spatial) shape a flagship window
    forward gives it (batch 8 = 4 TTA variants x patch_chunk 2) plus a ragged
-   one, domains 0 and 1, f32 and bf16; CUDA-event times of the kernel beside
-   the byte bound, and at the largest shape, f32 and bf16, of the plain
-   version and of F.batch_norm + F.prelu (a two-call yardstick: no single
-   PyTorch call computes this function);
+   one, domains 0 and 1, f32, bf16 and f16; CUDA-event times of the kernel
+   beside the byte bound, and at the largest shape, at each type, of the
+   plain version and of F.batch_norm + F.prelu (a two-call yardstick: no
+   single PyTorch call computes this function);
 3. forward: one [1,1,28,128,128] eval window of the full-width UNet2D5_dsbn
    (random weights from a seeded torch.Generator, non-trivial running
    statistics, domain 1) on the card (kernel) and on the CPU (plain), TF32 off;
 4. serving: the pseudo-label test stage through ``fpl_plus_torch.cli.main``
    on 3 seeded 40x160x272 NIfTI volumes with the phase-3 weights saved as a
-   reference-layout ``.pt`` checkpoint, at f32 and at bf16; the launch counter
-   must equal 18 x the network forwards of each run;
+   reference-layout ``.pt`` checkpoint, at f32, bf16 and f16; the launch
+   counter must equal 18 x the network forwards of each run; the bf16 and
+   f16 labels' agreement with f32's;
 5. main-path kernel shapes: the kernel against its plain version at every
    shape of the FPL pass's forwards (batch 48 = 6 passes x 4 flips x
    patch_chunk 2) and of batched serving's (batch 24 = 3 volumes x 4 flips
-   x patch_chunk 2), both dtypes and both domains, with times and byte
+   x patch_chunk 2), the three types and both domains, with times and byte
    bounds;
 6. fold: 6 MC-dropout passes folded into one batched inference against 6
    sequential passes under the same card generators, full width, TF32 off;
    then the FPL reduction of those logits on the card against the CPU;
 7. fpl: the ``fpl = True`` stage through ``fpl_plus_torch.cli.main`` on the
-   phase-4 volumes at f32 and bf16: a sorted ``.npy`` of 3 finite entries,
-   3 x 6 network forwards, 18 launches each; CUDA-event time of the pass per
-   volume and peak device memory;
+   phase-4 volumes at f32, bf16 and f16: a sorted ``.npy`` of 3 finite
+   entries, 3 x 6 network forwards, 18 launches each; CUDA-event time of the
+   pass per volume and peak device memory; the bf16 and f16 lists against
+   f32's (order, largest relative gap);
 8. batched: ``test_batch_size = 3`` serving through the CLI, timed, labels
    against the phase-4 per-volume labels; then with TF32 off, batched
    against per-volume labels;
@@ -47,8 +49,14 @@ then runs, each phase failing the script on any error:
 12. timed train step at the flagship setting (batch 4+4 crops of
     [28,128,128], ``train_fpl_uda`` DiceLoss with pixel and image weights,
     Adam, the network's dropout): median CUDA-event ms per step over 12
-    steps after 3 warm-up steps, and peak device memory, at f32 (TF32) and
-    bf16; TFLOP per step counted from the module shapes;
+    steps after 3 warm-up steps, and peak device memory, at f32 (TF32),
+    bf16 and f16, the losses against f32's; TFLOP per step counted from the
+    module shapes; the share of gradient entries exactly zero after one
+    step at each type, and of the logits' gradient the shares exactly
+    zero and (at f32) under f16's smallest subnormal and normal numbers
+    (the f16 underflow: no loss scaling, as in the JAX package); the
+    batch-norm kernels one step launches at each type, named from a
+    ``torch.profiler`` trace;
 13. train: ``fpl_plus_torch.cli train`` on labelled 40x160x272 volumes
     (generator run, 4 iterations with validation and checkpoints every 2,
     then the auto test stage and the ``[evaluation]`` reports, dice and
@@ -245,7 +253,25 @@ then runs, each phase failing the script on any error:
     plain one-process ``cli test`` of the generator's checkpoint, launches
     equal to 18 x the eval forwards, the evaluation CSVs of stages 1 and 4
     finite, each stage's wall and the total beside the card's name and
-    power limit.
+    power limit;
+37. ``precision = float16`` beyond the flagship: MeanTeacher, WSL
+    EntropyMinimization, CoTeaching and ResNet18 (full width, 2 steps each)
+    at f16 against the same steps at f32 (finite, losses within
+    PRECISION_LOSS_RTOL, the state f32; no launch); ``cli nll_clslsr`` of
+    phase 25 with phase 4's checkpoint at ``[testing] precision =
+    float32`` and ``float16`` (18 launches per eval forward, the f16 maps
+    against the f32 ones); ``matmul_precision`` highest,
+    default, highest in one process: the TF32 flags after each, and an f32
+    convolution and matmul bit-equal under a repeated value;
+38. profiler sessions back to back, in the process that traced in phases
+    12, 34 and 35: TRACE_PAIRS pairs of ``trace_metrics`` traces, one of a
+    phase-12 f32 step and one of 6 eval forwards of a flagship window
+    batch; every kernel launch call in each trace after ``start_trace``'s
+    priming ones has its kernel's event (the same correlation id), and
+    each inference trace holds as many
+    DSBN+PReLU kernel events as launches; the least kernel start less its
+    launch call's start per trace (negative where the trace's device
+    clock runs behind the host's).
 
 Phases 4, 7, 8, 17 and 34 time each Inferer dispatch that the stage makes
 (``run_async``, ``run_fpl_uncertainty``, ``run_batch_async``,
@@ -254,7 +280,7 @@ call and when it returns, read when the stage has ended: the stream's time
 from the end of the work before the dispatch to the end of its copy out,
 with no wait inside the pipelined stage.
 
-Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33-36) sets
+Each main-path run (phases 4, 7, 8, 13, 15, 17, 20, 23, 25-31, 33-37) sets
 the launch counter to 0 just before it and reads it just after. Then it prints
 one ``{"kernels": [...]}`` line and, last, the ok line. It imports nothing of the JAX package. Without
 a card, or without the ``fpl_plus_torch`` package beside it, it exits
@@ -295,10 +321,12 @@ CROP_VOLUME = (40, 144, 256)             # phase 17's CenterCrop
 DOMAIN = 1
 SEED = 20261016
 # tolerances: f32 -- the same f32 arithmetic, rsqrt/division rounded by
-# another instruction; bf16 -- both round one f32 value to bf16, so they
-# differ by at most one bf16 ulp (2^-8 relative) where the f32 values
-# straddle a rounding boundary
-TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# another instruction; bf16 and f16 -- both round one f32 value to the
+# input's type, so they differ by at most one ulp (bf16 2^-8, f16 2^-10
+# relative) where the f32 values straddle a rounding boundary
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+PRECISIONS = ('float32', 'bfloat16', 'float16')
 # forward phase, f32 with TF32 off: cuDNN and the CPU sum ~20 convolution
 # layers in different orders (phase 6: cuDNN at batch 48 vs batch 8)
 FWD_TOL = 1e-3
@@ -447,11 +475,11 @@ def kernel_phase(dev, rate, batch=BATCH):
     alpha = torch.tensor([0.25], device=dev)
     shapes = sorted(set(dsbn_shapes(batch)), key=lambda s: -np.prod(s))
     ragged = [(3, 96, 7, 9, 11)] if batch == BATCH else []   # S = 693
-    rows, max_err = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows, max_err = {}, {dtype: 0.0 for dtype in DTYPES}
     for shape in shapes + ragged:
         tables = random_tables(shape[1], gen, dev)
         x32 = torch.randn(shape, generator=cuda_gen, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             x = x32.to(dtype)
             for d in (0, 1):
                 got = dsbn_prelu(x, *tables, d, alpha)
@@ -480,9 +508,10 @@ def kernel_phase(dev, rate, batch=BATCH):
     tables = random_tables(big[1], gen, dev)
     x32 = torch.randn(big, generator=cuda_gen, device=dev)
     g, b, m, v = (t[DOMAIN] for t in tables)
-    for dtype in (torch.float32, torch.bfloat16):
-        # the yardstick at bf16: a bf16 input with the f32 tables (PyTorch's
-        # mixed-type batch norm), the slope in the input's type
+    for dtype in DTYPES:
+        # the yardstick at bf16 and f16: an input of that type with the f32
+        # tables (PyTorch's mixed-type batch norm), the slope in the
+        # input's type
         x, a = x32.to(dtype), alpha.to(dtype)
         row = rows[(big, dtype)]
         row['plain_ms'] = cuda_ms(lambda: dsbn_prelu_reference(
@@ -733,7 +762,7 @@ def serving_phase(root, net):
     windows = len(window_grid(VOLUME, WINDOW, WINDOW))   # 12
     fwd_per_volume = -(-windows // PATCH_CHUNK)
     results = {}
-    for precision in ('float32', 'bfloat16'):
+    for precision in PRECISIONS:
         out = 'out_' + precision
         cfg = write_cfg(root, precision, precision)
         vol_ms = []
@@ -773,10 +802,13 @@ def serving_phase(root, net):
                   ['{0:.2f}'.format(t) for t in vol_ms], forwards[0],
                   launches, peak / 2 ** 30,
                   float(np.mean([lb.mean() for lb in labels]))))
-    agree = np.mean([np.mean(a == b) for a, b in zip(
-        results['float32']['labels'], results['bfloat16']['labels'])])
-    print('serving: bf16 labels agree with f32 on {0:.5f} of voxels'.format(
-        agree))
+    for precision in PRECISIONS[1:]:
+        results[precision]['agree_f32'] = float(np.mean([
+            np.mean(a == b) for a, b in zip(results['float32']['labels'],
+                                            results[precision]['labels'])]))
+    print('serving: labels agree with f32 on {0!r} of voxels at bf16, '
+          '{1!r} at f16'.format(results['bfloat16']['agree_f32'],
+                                results['float16']['agree_f32']))
     return results, names, fwd_per_volume
 
 
@@ -837,12 +869,12 @@ def fold_phase(dev, net):
 
 
 def fpl_phase(root, dev, names, fwd_per_volume):
-    """The ``fpl = True`` stage through the CLI at f32 and bf16."""
+    """The ``fpl = True`` stage through the CLI at f32, bf16 and f16."""
     from fpl_plus_torch import cli
     from fpl_plus_torch.engine.infer import Inferer
     from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
     results = {}
-    for precision in ('float32', 'bfloat16'):
+    for precision in PRECISIONS:
         npy = os.path.join(root, 'fpl_{0}.npy'.format(precision))
         cfg = write_cfg(root, 'fpl_' + precision, precision, extra=(
             'fpl = True\nfpl_uncertainty_sorted = ' + npy))
@@ -879,6 +911,14 @@ def fpl_phase(root, dev, names, fwd_per_volume):
               'uncertainties {7}'.format(
                   precision, len(values), ['{0:.2f}'.format(t) for t in ms],
                   forwards[0], FPL_BATCH, launches, peak / 2 ** 30, values))
+    f32 = results['float32']['by_name']
+    for precision in PRECISIONS[1:]:
+        r = results[precision]
+        r['same_order'] = (sorted(f32, key=f32.get)
+                           == sorted(r['by_name'], key=r['by_name'].get))
+        r['rel_f32'] = max(abs(r['by_name'][n] / f32[n] - 1) for n in f32)
+        print('fpl {0} against f32: the same order {1}, uncertainties within '
+              'rel {2!r}'.format(precision, r['same_order'], r['rel_f32']))
     return results
 
 
@@ -1090,31 +1130,33 @@ def train_step_phase(dev):
             'stats_err': stats_err}
 
 
-def timed_train_phase(dev, net, macs):
-    """The flagship joint step at f32 (TF32, PyTorch's default) and bf16:
-    median CUDA-event ms over TRAIN_STEPS steps after TRAIN_WARMUP, peak
-    device memory."""
-    from fpl_plus_torch.utils.precision import resolve_dtype
+def train_batches(dev):
+    """Phase 12's batch: 4 + 4 seeded flagship crops on ``dev``."""
     gen = torch.Generator().manual_seed(SEED + 6)
-    batches = [train_inputs(gen, TRAIN_BATCH, dev) for _ in range(2)]
+    return [train_inputs(gen, TRAIN_BATCH, dev) for _ in range(2)]
+
+
+def timed_train_phase(dev, net, macs):
+    """The flagship joint step at f32 (TF32, PyTorch's default), bf16 and
+    f16: median CUDA-event ms over TRAIN_STEPS steps after TRAIN_WARMUP,
+    peak device memory, the losses against f32's; then the share of
+    gradient entries that are exactly zero at each type
+    (``zero_grad_shares``) and the step's batch-norm kernels
+    (``norm_kernels``)."""
+    batches = train_batches(dev)
     # forward, input-gradient and weight-gradient convolutions: 3 x the
     # forward's 2 x MACs, per window, 2 x TRAIN_BATCH windows
     tflop = 3 * 2 * macs * 2 * TRAIN_BATCH / 1e12
     results = {}
-    for precision in ('float32', 'bfloat16'):
-        step = make_step(copy.deepcopy(net).to(dev),
-                         resolve_dtype(precision))
-        seeds = np.random.SeedSequence([SEED, 7]).generate_state(
-            2 * (TRAIN_STEPS + TRAIN_WARMUP))
-        gens = iter([torch.Generator(dev).manual_seed(int(x))
-                     for x in seeds])
+    for precision in PRECISIONS:
+        step, draws = phase12_step(dev, net, precision)
         torch.cuda.reset_peak_memory_stats(dev)
         ms, losses = [], []
         for i in range(TRAIN_WARMUP + TRAIN_STEPS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            m = step(batches, [[next(gens)], [next(gens)]])
+            m = step(batches, draws())
             end.record()
             end.synchronize()
             losses.append(float(m['loss']))
@@ -1123,7 +1165,8 @@ def timed_train_phase(dev, net, macs):
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         med = float(np.median(ms))
         check(all(np.isfinite(losses)), 'non-finite train loss')
-        results[precision] = {'ms': med, 'ms_all': ms, 'peak_gib': peak}
+        results[precision] = {'ms': med, 'ms_all': ms, 'peak_gib': peak,
+                              'losses': losses}
         print('train step {0}: batch {1}+{1} crops {2}, median {3:.2f} ms '
               'per step over {4} steps (min {5:.2f}, max {6:.2f}), peak '
               'device memory {7:.2f} GiB, {8:.2f} TFLOP per step, {9:.1f} '
@@ -1133,8 +1176,146 @@ def timed_train_phase(dev, net, macs):
                   losses[-1]))
         del step
         torch.cuda.empty_cache()
+    f32 = np.asarray(results['float32']['losses'])
+    for precision in PRECISIONS[1:]:
+        rel = np.abs(np.asarray(results[precision]['losses']) / f32 - 1)
+        results[precision]['loss_rel_f32'] = float(rel.max())
+        print('train step {0}: losses over the {1} steps against f32 within '
+              'rel {2!r} (step by step {3})'.format(
+                  precision, len(f32), float(rel.max()),
+                  ['{0:.2e}'.format(r) for r in rel]))
     results['tflop'] = tflop
+    results['zero_grad'] = zero_grad_shares(dev, net, batches)
+    results['norm_kernels'] = norm_kernels(dev, net, batches)
     return results
+
+
+F16_TINY = 2.0 ** -24          # f16's smallest subnormal
+F16_NORMAL = 2.0 ** -14        # f16's smallest normal number
+
+
+def phase12_step(dev, net, precision):
+    """A fresh joint step of a copy of ``net`` at ``precision``, and a
+    function that returns phase 12's dropout generators of the next step
+    (one per domain), in phase 12's order."""
+    from fpl_plus_torch.utils.precision import resolve_dtype
+    step = make_step(copy.deepcopy(net).to(dev), resolve_dtype(precision))
+    seeds = iter(np.random.SeedSequence([SEED, 7]).generate_state(
+        2 * (TRAIN_STEPS + TRAIN_WARMUP)))
+    return step, lambda: [[torch.Generator(dev).manual_seed(int(next(seeds)))]
+                          for _ in range(2)]
+
+
+def first_step(dev, net, batches, precision, hook=None):
+    """``phase12_step`` run once on ``batches``; ``hook``: a forward hook
+    on the network during that step."""
+    step, draws = phase12_step(dev, net, precision)
+    handle = None if hook is None else step.module.register_forward_hook(
+        hook)
+    try:
+        step(batches, draws())
+    finally:
+        if handle is not None:
+            handle.remove()
+    return step
+
+
+def logit_grads(sink):
+    """A forward hook that appends, for each train-mode output, the count
+    of its gradient's entries that are exactly zero, of those that are not
+    zero but under f16's smallest subnormal and under its smallest normal
+    number, and of all its entries: the gradient that reaches the
+    network's output in its compute type (the cast back to f32 rounds it
+    to that type on the way back)."""
+    def tail(g):
+        nonzero = g != 0
+        sink.append((int((~nonzero).sum()),
+                     int((nonzero & (g.abs() < F16_TINY)).sum()),
+                     int((nonzero & (g.abs() < F16_NORMAL)).sum()),
+                     g.numel()))
+
+    def hook(module, args, out):
+        if out.requires_grad:
+            out.register_hook(tail)
+    return hook
+
+
+def zero_grad_shares(dev, net, batches):
+    """(12b) The share of gradient entries that are exactly zero after
+    one flagship step at each type from the same weights, batch and
+    dropout draws: f16 gradients that underflow (the JAX package does no
+    loss scaling, and neither does the port)."""
+    out = {}
+    for precision in PRECISIONS:
+        heads = []
+        step = first_step(dev, net, batches, precision, logit_grads(heads))
+        grads = [p.grad for p in step.module.parameters()]
+        zeros = sum(int((g == 0).sum()) for g in grads)
+        total = sum(g.numel() for g in grads)
+        whole = sum(1 for g in grads if not bool(g.any()))
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              'non-finite {0} gradient'.format(precision))
+        check(len(heads) == 2, '{0} logit gradients seen'.format(len(heads)))
+        z, tiny, sub, n = (sum(h[i] for h in heads) for i in range(4))
+        out[precision] = {'zero_share': zeros / total, 'zero': zeros,
+                          'entries': total, 'zero_tensors': whole,
+                          'logit_zero_share': z / n,
+                          'logit_below_2m24_share': tiny / n,
+                          'logit_below_2m14_share': sub / n}
+        print('train step {0}: {1} of {2} gradient entries exactly zero '
+              '({3!r}), {4} of {5} tensors all zero; the logits\' '
+              'gradient: {6!r} of its entries exactly zero, {7!r} not zero '
+              'but under 2^-24, {8!r} not zero but under 2^-14'.format(
+                  precision, zeros, total, zeros / total, whole,
+                  len(grads), z / n, tiny / n, sub / n))
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def norm_kernels(dev, net, batches):
+    """(12c) The batch-norm kernels one flagship step launches at each
+    type, named from a ``torch.profiler`` trace of the second step of a
+    fresh step object: name, launches, device ms, and their share of the
+    step's kernel time."""
+    from fpl_plus_torch.utils import trace_metrics
+    os.makedirs(os.path.join(REPO, 'build'), exist_ok=True)
+    out = {}
+    for precision in PRECISIONS:
+        step = first_step(dev, net, batches, precision)
+        gens = [[torch.Generator(dev).manual_seed(SEED + 8 + d)]
+                for d in (0, 1)]
+        with tempfile.TemporaryDirectory(dir=os.path.join(
+                REPO, 'build')) as trace_dir:
+            trace_metrics.start_trace(trace_dir, dev)
+            try:
+                step(batches, gens)
+            finally:
+                trace_metrics.stop_trace()
+            events = [e for e in trace_metrics.trace_events(trace_dir)
+                      if e.get('ph') == 'X' and e.get('cat') == 'kernel'
+                      and trace_metrics.PRIME_KERNEL not in e['name']]
+        total = sum(float(e['dur']) for e in events)
+        norms = {}
+        for e in events:
+            low = e['name'].lower()
+            if 'norm' in low or 'bn_' in low or 'welford' in low:
+                n, us = norms.get(e['name'], (0, 0.0))
+                norms[e['name']] = (n + 1, us + float(e['dur']))
+        check(events and norms, '{0} step: {1} kernels, no batch-norm '
+              'kernel in the trace'.format(precision, len(events)))
+        share = sum(us for _, us in norms.values()) / total
+        out[precision] = {'kernels': {k: [n, us / 1e3]
+                                      for k, (n, us) in norms.items()},
+                          'share': share, 'kernel_ms': total / 1e3}
+        print('train step {0}: batch-norm kernels {1!r} of {2:.2f} ms of '
+              'kernels in the step:'.format(precision, share, total / 1e3))
+        for k, (n, us) in sorted(norms.items(), key=lambda kv: -kv[1][1]):
+            print('    {0} launches, {1:.3f} ms: {2}'.format(n, us / 1e3,
+                                                           k[:160]))
+        del step
+        torch.cuda.empty_cache()
+    return out
 
 
 TRAIN_CFG = """
@@ -5287,6 +5468,306 @@ def driver_phase(root, dev, smi):
             'launches': launches, 'wall_s': wall}
 
 
+PRECISION_STEPS = 2              # phase 37: steps of each method and type
+# phase 37, an f16 step against the f32 step from the same weights, batch
+# and draws at full width: both round their own way through ~20 layers and
+# their batch statistics (the CPU tests measured f16 against f32 within rel
+# 8.8e-4 at small widths; JAX's f16 step within 2.1e-5 of the port's)
+PRECISION_LOSS_RTOL = 2e-2
+MATMUL_VALUES = ('highest', 'default', 'highest')
+
+
+def precision_steps(dev):
+    """(37a) One SSL (MeanTeacher), one WSL (EntropyMinimization), one NLL
+    (CoTeaching) and one cls (ResNet18) method for PRECISION_STEPS steps at
+    f16 and at f32 from the same weights, batches and draws, on the card:
+    the f16 losses finite and within PRECISION_LOSS_RTOL of f32's, the
+    parameters and statistics still f32. No kernel launch (train-mode
+    forwards only)."""
+    from fpl_plus_torch.agents.agent_cls import ClassificationAgent
+    from fpl_plus_torch.engine.optim import create_optimizer
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    before = dsbn_prelu.launches
+
+    def paradigm(kind, method, seed):
+        def run(precision):
+            cfg = (nll_config(method) if kind == 'nll'
+                   else paradigm_config(kind, method))
+            cfg['training']['precision'] = precision
+            if kind == 'nll':
+                agent, step = nll_agent(cfg, nll_net(cfg, method, seed), dev)
+                batches = batches_to(nll_batches(
+                    method, torch.Generator().manual_seed(seed), 4, WINDOW),
+                    dev)
+            else:
+                agent, step = paradigm_agent(
+                    kind, cfg, paradigm_net(cfg, method, seed), dev)
+                batches = paradigm_batches(
+                    kind, method, torch.Generator().manual_seed(seed), 2,
+                    WINDOW, dev)
+            losses = [float(step(batches, agent._step_generators(k),
+                                 **agent.training_hyper(k))['loss'])
+                      for k in range(PRECISION_STEPS)]
+            return losses, agent.module
+        return run
+
+    def cls(seed):
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.randn((CLS_BATCH, 3, CLS_HW, CLS_HW), generator=gen)
+        labels = torch.randint(0, 2, (CLS_BATCH,), generator=gen)
+
+        def run(precision):
+            cfg = {'dataset': {'task_type': 'cls'},
+                   'network': {'net_type': 'resnet18', 'class_num': 2,
+                               'input_chns': 3},
+                   'training': {'optimizer': 'Adam', 'learning_rate': 1e-4,
+                                'weight_decay': 0.0, 'precision': precision,
+                                'loss_type': 'CrossEntropyLoss'},
+                   'testing': {}}
+            agent = ClassificationAgent(cfg, 'train', dev)
+            agent.module = cls_net('resnet18', seed).to(dev).train()
+            optimizer = create_optimizer(cfg['training'],
+                                         agent.module.parameters())
+            loss_calc = agent._loss_calculator()
+            losses = [float(agent.train_step(optimizer, loss_calc,
+                                             x.to(dev), labels.to(dev),
+                                             k)[0])
+                      for k in range(PRECISION_STEPS)]
+            return losses, agent.module
+        return run
+
+    cases = {'ssl MeanTeacher': paradigm('ssl', 'MeanTeacher', SEED + 371),
+             'wsl EntropyMinimization': paradigm('wsl', 'EntropyMinimization',
+                                                 SEED + 372),
+             'nll CoTeaching': paradigm('nll', 'CoTeaching', SEED + 373),
+             'cls resnet18': cls(SEED + 374)}
+    out = {}
+    for tag, run in cases.items():
+        got = {}
+        for precision in ('float32', 'float16'):
+            t0 = time.perf_counter()
+            losses, module = run(precision)
+            torch.cuda.synchronize()
+            check(all(t.dtype in (torch.float32, torch.long)
+                      for t in module.state_dict().values()),
+                  '{0} {1}: the state left f32'.format(tag, precision))
+            got[precision] = (losses, time.perf_counter() - t0)
+            del module
+            torch.cuda.empty_cache()
+        (l32, s32), (l16, s16) = got['float32'], got['float16']
+        rel = max(abs(a / b - 1) for a, b in zip(l16, l32))
+        out[tag] = {'losses_f32': l32, 'losses_f16': l16, 'rel': rel}
+        print('precision {0}: {1} steps at full width, losses f16 {2} '
+              'against f32 {3}, within rel {4!r} (tolerance {5}); host '
+              'seconds f32 {6:.2f}, f16 {7:.2f} (builds included)'.format(
+                  tag, PRECISION_STEPS, l16, l32, rel, PRECISION_LOSS_RTOL,
+                  s32, s16))
+        check(np.isfinite(l16).all() and rel <= PRECISION_LOSS_RTOL,
+              '{0}: f16 losses {1} against f32 {2}'.format(tag, l16, l32))
+    check(dsbn_prelu.launches == before, 'the phase 37 steps launched the '
+          'DSBN+PReLU kernel')
+    return out
+
+
+def read_conf_maps(root, csv_name):
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    rows = list(csv.reader(open(os.path.join(root, csv_name))))[1:]
+    return [load_image_as_nd_array(os.path.join(
+        root, 'slsr_conf', os.path.basename(label)))['data_array']
+        for _, label in rows]
+
+
+def clslsr_f16_phase(root, fwd_per_volume):
+    """(37b) ``cli nll_clslsr`` of phase 25 over phase 13's train manifest,
+    with phase 4's checkpoint (the phase-3 weights: confident learning
+    flags voxels with them, and none with phase 13's generator that phase
+    25 reads), at ``[testing] precision = float32`` and ``float16`` (its
+    ``_loaded_module`` casts the parameters): 18 launches per eval forward
+    each, the maps and the manifest as phase 25 checks them, and the f16
+    maps against the f32 ones."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    out = {}
+    for precision in ('float32', 'float16'):
+        cfg = nll_cli_cfg(root, 'clslsr_' + precision,
+                          train_csv='d1_train.csv', clslsr=True)
+        with open(cfg) as f:
+            text = f.read()
+        with open(cfg, 'w') as f:
+            f.write(text.replace('model/train/train_4.pt',
+                                 'model/gen/gen_100.pt').replace(
+                'cl_type = both', 'cl_type = both\nprecision = ' + precision))
+        with counting_forwards() as forwards:
+            dsbn_prelu.launches = 0      # the main path's count starts here
+            t0 = time.perf_counter()
+            rc = cli.main_nll_clslsr(['test', cfg])
+            wall = time.perf_counter() - t0
+            launches = dsbn_prelu.launches
+        check(rc == 0, 'clslsr {0} rc {1}'.format(precision, rc))
+        check(forwards[0] == N_VOLUMES * fwd_per_volume
+              and launches == 18 * forwards[0], 'clslsr {0}: {1} eval '
+              'forwards (expected {2}), {3} launches'.format(
+                  precision, forwards[0], N_VOLUMES * fwd_per_volume,
+                  launches))
+        flagged = check_conf_maps(root, 'd1_train.csv')
+        out[precision] = {'launches': launches, 'flagged': flagged,
+                          'maps': read_conf_maps(root, 'd1_train.csv'),
+                          'wall_s': wall}
+    check(sum(out['float32']['flagged']) > 0, 'clslsr f32 flagged no voxel')
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(
+        out['float32']['maps'], out['float16']['maps'])]))
+    print('precision clslsr: phase 4\'s checkpoint, 2 x {0} eval forwards, '
+          '{1} kernel launches; voxels flagged per volume f32 {2}, f16 {3}; '
+          'the f16 maps agree with f32\'s on {4!r} of voxels; walls {5:.1f} '
+          '/ {6:.1f} s'.format(
+              forwards[0], sum(r['launches'] for r in out.values()),
+              out['float32']['flagged'], out['float16']['flagged'], agree,
+              out['float32']['wall_s'], out['float16']['wall_s']))
+    return {'launches': sum(r['launches'] for r in out.values()),
+            'agree': agree, 'flagged': {p: r['flagged']
+                                        for p, r in out.items()},
+            'wall_s': {p: r['wall_s'] for p, r in out.items()}}
+
+
+def matmul_precision_phase(dev):
+    """(37c) ``matmul_precision`` highest, default, highest in one process
+    (``apply_matmul_precision`` of a stage config each): the two TF32 flags
+    after each, and an f32 cuDNN convolution and a matmul under each value,
+    bit-equal to the first run under the same value."""
+    from fpl_plus_torch.utils.precision import apply_matmul_precision
+    gen = torch.Generator().manual_seed(SEED + 375)
+    x = torch.randn((BATCH, 32, 28, 64, 64), generator=gen).to(dev)
+    w = (torch.randn((32, 32, 1, 3, 3), generator=gen) * 0.1).to(dev)
+    a = torch.randn((1024, 1024), generator=gen).to(dev)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    seen, flags = {}, []
+    try:
+        for value in MATMUL_VALUES:
+            apply_matmul_precision({'testing': {'matmul_precision': value}},
+                                   'test')
+            now = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+            y = (F.conv3d(x, w, padding=(0, 1, 1)), a @ a)
+            torch.cuda.synchronize()
+            flags.append(now)
+            if value in seen:
+                check(now == seen[value][0] and all(
+                    torch.equal(u, v) for u, v in zip(y, seen[value][1])),
+                    'matmul_precision {0} again: flags {1}, results not '
+                    'bit-equal'.format(value, now))
+            else:
+                seen[value] = (now, y)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    check(flags == [(False, False), (True, False), (False, False)],
+          'matmul_precision flags {0}'.format(flags))
+    conv_gap = float((seen['highest'][1][0] - seen['default'][1][0]).abs()
+                     .max())
+    print('precision matmul_precision {0}: (cudnn, matmul) TF32 flags {1}; '
+          'the repeated value bit-equal; conv highest vs default max abs '
+          'diff {2!r}'.format(list(MATMUL_VALUES), flags, conv_gap))
+    return {'flags': flags, 'conv_gap': conv_gap}
+
+
+TRACE_PAIRS = 4                  # phase 38: (train step, inference) traces
+TRACE_FORWARDS = 6               # phase 38: eval forwards per inference trace
+
+
+def launch_audit(path):
+    """(kernel launch calls after ``start_trace``'s priming ones, those
+    whose kernel has no event, the least kernel start less its launch
+    call's start in us) of one trace: a launch call (runtime or driver
+    API) and its kernel share a correlation id."""
+    from fpl_plus_torch.utils import trace_metrics as tm
+    events = [e for e in tm.trace_events(path) if e.get('ph') == 'X']
+    kernels = {e['args'].get('correlation'): e for e in events
+               if e.get('cat') == 'kernel'}
+    calls = sorted((e for e in events
+                    if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                    and 'LaunchKernel' in e['name']),
+                   key=lambda e: float(e['ts']))
+    primed = [i for i, e in enumerate(calls) if tm.PRIME_KERNEL in
+              kernels.get(e['args'].get('correlation'), {}).get('name', '')]
+    calls = calls[primed[-1] + 1 if primed else 0:]
+    lost = [e for e in calls if e['args'].get('correlation') not in kernels]
+    skew = [float(kernels[e['args']['correlation']]['ts']) - float(e['ts'])
+            for e in calls if e['args'].get('correlation') in kernels]
+    return len(calls), len(lost), min(skew)
+
+
+def trace_sessions_phase(dev, net):
+    """(38) Back-to-back ``trace_metrics`` sessions (see the module
+    docstring): each trace's launch calls against its kernel events."""
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+    from fpl_plus_torch.utils import trace_metrics as tm
+    t0 = time.perf_counter()
+    batches = train_batches(dev)
+    step, draws = phase12_step(dev, net, 'float32')
+    gens = draws()
+    step(batches, gens)
+    eval_net = copy.deepcopy(net).to(dev).eval()
+    x = torch.randn((BATCH, 1) + tuple(WINDOW), generator=torch.Generator(
+        ).manual_seed(SEED + 9)).to(dev)
+
+    def infer():
+        with torch.inference_mode():
+            for _ in range(TRACE_FORWARDS):
+                eval_net(x, DOMAIN)
+    infer()
+    torch.cuda.synchronize(dev)
+    lost, skews = 0, []
+    for i in range(TRACE_PAIRS):
+        for tag, fn in (('train', lambda: step(batches, gens)),
+                        ('infer', infer)):
+            with tempfile.TemporaryDirectory(dir=os.path.join(
+                    REPO, 'build')) as trace_dir:
+                dsbn_prelu.launches = 0
+                tm.start_trace(trace_dir, dev)
+                try:
+                    fn()
+                finally:
+                    tm.stop_trace()
+                launches = dsbn_prelu.launches
+                path = one_trace(trace_dir)
+                calls, missing, skew = launch_audit(path)
+                events = kernel_events(tm.trace_events(path))
+            want = 18 * TRACE_FORWARDS if tag == 'infer' else 0
+            print('trace session {0} {1}: {2} launch calls, {3} without a '
+                  'kernel event; DSBN+PReLU {4} launches, {5} kernel events; '
+                  'least kernel start less its launch call {6!r} us'.format(
+                      i, tag, calls, missing, launches, events, skew))
+            check(missing == 0 and launches == want and events == launches,
+                  'trace session {0} {1}: {2} of {3} launch calls without '
+                  'a kernel event, {4} DSBN+PReLU events for {5} '
+                  'launches'.format(i, tag, missing, calls, events,
+                                    launches))
+            lost += missing
+            skews.append(skew)
+    wall = time.perf_counter() - t0
+    print('trace sessions (phase 38): {0} traces, {1} launch calls without '
+          'a kernel event, least kernel start less its launch call {2!r} us '
+          '(start_trace primes {3} s), phase wall {4:.1f} s'.format(
+              len(skews), lost, min(skews), tm.PRIME_S, wall))
+    return {'sessions': len(skews), 'lost': lost, 'skew_us': skews,
+            'wall_s': wall}
+
+
+def precision_phase(root, dev, fwd_per_volume):
+    """Phase 37: (a) the f16 paradigm and cls steps, (b) the CLSLSR
+    inference at f16, (c) ``matmul_precision`` across stages."""
+    t0 = time.perf_counter()
+    out = {'steps': precision_steps(dev),
+           'clslsr': clslsr_f16_phase(root, fwd_per_volume),
+           'matmul': matmul_precision_phase(dev)}
+    out['wall_s'] = time.perf_counter() - t0
+    out['launches'] = out['clslsr']['launches']
+    print('precision (phase 37): {0} kernel launches, phase wall {1:.1f} s'
+          .format(out['launches'], out['wall_s']))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
@@ -5355,14 +5836,15 @@ def main():
         pipeline = pipeline_phase(ws, dev, serving, batched, names,
                                   fwd_per_volume)
         driver = driver_phase(ws, dev, smi)
+        half = precision_phase(ws, dev, fwd_per_volume)
+    sessions = trace_sessions_phase(dev, net)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
 
     launch_shapes = dsbn_shapes(BATCH)
     per_volume = {}
-    for precision, dtype in (('float32', torch.float32),
-                             ('bfloat16', torch.bfloat16)):
+    for precision, dtype in zip(PRECISIONS, DTYPES):
         fwd = serving[precision]['forwards'] / N_VOLUMES   # measured
         k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in launch_shapes)
         b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in launch_shapes)
@@ -5379,8 +5861,7 @@ def main():
     fpl_shapes = dsbn_shapes(FPL_BATCH)
     fpl_flop_per_volume = 2 * macs * FPL_BATCH * fwd_per_volume
     fpl_kernel = {}
-    for precision, dtype in (('float32', torch.float32),
-                             ('bfloat16', torch.bfloat16)):
+    for precision, dtype in zip(PRECISIONS, DTYPES):
         fwd = fpl[precision]['forwards'] / N_VOLUMES       # measured
         k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in fpl_shapes)
         b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in fpl_shapes)
@@ -5431,12 +5912,13 @@ def main():
     for m, r in cls_steps.items():
         print('cls summary {0}: step {1:.2f} ms, peak {2:.2f} GiB'.format(
             m, r['ms'], r['peak_gib']))
-    print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms per step '
-          '(batch 4+4), peak {2:.2f} / {3:.2f} GiB, {4:.2f} TFLOP per step; '
-          'card vs CPU gradient max rel err {5:.3g}'.format(
-              timed['float32']['ms'], timed['bfloat16']['ms'],
-              timed['float32']['peak_gib'], timed['bfloat16']['peak_gib'],
-              timed['tflop'], step_check['grad_rel']))
+    print('train step summary: f32 {0:.2f} ms, bf16 {1:.2f} ms, f16 {2:.2f} '
+          'ms per step (batch 4+4), peak {3:.2f} / {4:.2f} / {5:.2f} GiB, '
+          '{6:.2f} TFLOP per step; card vs CPU gradient max rel err {7:.3g}'
+          .format(timed['float32']['ms'], timed['bfloat16']['ms'],
+                  timed['float16']['ms'], timed['float32']['peak_gib'],
+                  timed['bfloat16']['peak_gib'], timed['float16']['peak_gib'],
+                  timed['tflop'], step_check['grad_rel']))
     entry = {
         'name': 'dsbn_prelu', 'route': 'triton', 'source': SOURCE,
         'replaces': REPLACES,
@@ -5456,11 +5938,13 @@ def main():
                      + nccl['launches']
                      + sum(r['launches'] for r in paradigm_nccl.values())
                      + profile['launches'] + pipeline['launches']
-                     + driver['launches']),
+                     + driver['launches'] + half['launches']),
         'max_abs_err': max(e[torch.float32]
                            for e in (max_err, max_err48, max_err24)),
         'max_abs_err_bf16': max(e[torch.bfloat16]
                                 for e in (max_err, max_err48, max_err24)),
+        'max_abs_err_f16': max(e[torch.float16]
+                               for e in (max_err, max_err48, max_err24)),
         'shape': list(big), 'dtype': 'float32',
         'ms': rows[(big, torch.float32)]['ms'], 'plain_ms': plain_ms,
         'bound_ms': rows[(big, torch.float32)]['bound_ms'],
@@ -5478,6 +5962,37 @@ def main():
                  'fpl_plain_ms': rows[(big48, torch.bfloat16)]['plain_ms'],
                  'fpl_yardstick_ms': rows[(big48,
                                            torch.bfloat16)]['yard_ms']},
+        'f16': {'ms': rows[(big, torch.float16)]['ms'],
+                'bound_ms': rows[(big, torch.float16)]['bound_ms'],
+                'plain_ms': rows[(big, torch.float16)]['plain_ms'],
+                'yardstick_ms': rows[(big, torch.float16)]['yard_ms'],
+                'fpl_ms': rows[(big48, torch.float16)]['ms'],
+                'fpl_bound_ms': rows[(big48, torch.float16)]['bound_ms'],
+                'fpl_plain_ms': rows[(big48, torch.float16)]['plain_ms'],
+                'fpl_yardstick_ms': rows[(big48, torch.float16)]['yard_ms'],
+                'serving_launches': serving['float16']['launches'],
+                'fpl_launches': fpl['float16']['launches']},
+        'serving_agree_f32': {p: serving[p]['agree_f32']
+                              for p in PRECISIONS[1:]},
+        'fpl_rel_f32': {p: fpl[p]['rel_f32'] for p in PRECISIONS[1:]},
+        'train_step_ms': {p: timed[p]['ms'] for p in PRECISIONS},
+        'train_step_peak_gib': {p: timed[p]['peak_gib'] for p in PRECISIONS},
+        'train_loss_rel_f32': {p: timed[p]['loss_rel_f32']
+                               for p in PRECISIONS[1:]},
+        'train_zero_grad_share': {p: timed['zero_grad'][p]['zero_share']
+                                  for p in PRECISIONS},
+        'train_logit_grad_zero_share': {
+            p: timed['zero_grad'][p]['logit_zero_share']
+            for p in PRECISIONS},
+        'train_norm_kernels': timed['norm_kernels'],
+        'trace_sessions': sessions['sessions'],
+        'trace_lost_kernel_events': sessions['lost'],
+        'trace_skew_us': sessions['skew_us'],
+        'precision_steps': half['steps'],
+        'precision_clslsr': {k: half['clslsr'][k]
+                             for k in ('launches', 'agree', 'wall_s')},
+        'precision_matmul': half['matmul'],
+        'precision_wall_s': half['wall_s'],
         'fpl_shape': list(big48),
         'fpl_ms': rows[(big48, torch.float32)]['ms'],
         'fpl_plain_ms': plain48, 'fpl_yardstick_ms': yard48,

@@ -10,11 +10,11 @@ against ``[N, C]`` logits).
 
 Training runs in blocks of ``iter_valid`` iterations: one train-mode
 forward, loss and optimizer update per iteration (``[training] precision
-= bfloat16``: bf16 copies of the f32 parameters and of the input feed the
-forward, as in ``engine/train.py``), then validation over the valid
-manifest (the ``evaluation_metric``, default accuracy), the plateau
-controller, a ``.pt`` checkpoint per block and the best one with its
-pointer; ``iter_start > 0`` resumes from ``{prefix}_{iter_start}.pt`` with
+= bfloat16`` or ``float16``: copies of the f32 parameters and of the input
+in that dtype feed the forward, as in ``engine/train.py``), then
+validation over the valid manifest (the ``evaluation_metric``, default
+accuracy), the plateau controller, a ``.pt`` checkpoint per block and the
+best one with its pointer; ``iter_start > 0`` resumes from ``{prefix}_{iter_start}.pt`` with
 its optimizer state. The dropout of iteration ``it`` draws from a
 ``torch.Generator`` seeded from ``SeedSequence([random_seed, it])``.
 Inference writes ``output_csv`` (``image,label``, or ``image,label0,..``
@@ -128,8 +128,8 @@ class ClassificationAgent(NetRunAgent):
         return float(np.mean(preds == labels))
 
     def _forward(self, x, generators=None):
-        """The train-mode forward (bf16 copies under ``precision =
-        bfloat16``), f32 logits."""
+        """The train-mode forward (bf16 or f16 copies under ``precision
+        = bfloat16`` or ``float16``), f32 logits."""
         if self.train_dtype is None:
             return self.module(x, generators)
         params = {k: p.to(self.train_dtype)

@@ -20,7 +20,8 @@ Training (``train_valid``, reference :689-831, JAX :417-803):
   raises ``ValueError``, as there;
 * Adam or another ``torch.optim`` optimizer, MultiStepLR over iterations
   (two updates per iteration for the alternating and dual-consistency
-  steps) or the plateau controller, ``[training] precision`` f32 or bf16;
+  steps) or the plateau controller, ``[training] precision`` f32, bf16
+  or f16;
 * the per-domain train streams are produced by the loaders' worker
   processes and collated, pinned and paired in a thread (``prefetch_iter``)
   while the card steps; the time the loop waits on

@@ -340,8 +340,10 @@ class Inferer:
         # package; its result after fetch is the label map, which is what
         # crosses back here
         self.output_mode = 'label' if mode == 'packed_label' else mode
-        # 'bfloat16': the volume is cast on the host (round to nearest
-        # even) and all patch activations follow; accumulators stay f32
+        # 'bfloat16' / 'float16': the volume is cast on the host (round to
+        # nearest even; beyond f16's range, to +-inf, as numpy's astype in
+        # the JAX package) and all patch activations follow; accumulators
+        # stay f32
         self.compute_dtype = resolve_dtype(config.get('precision', 'float32'))
         self.counter_mode = config.get('multiscale_counter', 'exact')
         if self.counter_mode not in ('exact', 'reference'):

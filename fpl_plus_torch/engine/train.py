@@ -38,15 +38,16 @@ classwise dice of the one-hot argmax per domain (``class_dice_{d}``).
   schedule of the same sums, so the port accepts the key and ignores it.
 * Dropout draws from the ``torch.Generator`` given for each forward
   (``models/common.py`` ``grouped_dropout``).
-* ``compute_dtype`` (``[training] precision = bfloat16``) mirrors the JAX
-  package's policy (``utils/precision.py`` ``cast_apply_fn``): bf16 copies
-  of every parameter (the DSBN affine and the PReLU slope included) and of
-  the input feed the forward through ``torch.func.functional_call``, so the
-  f32 masters stay untouched and receive f32 gradients; the DSBN running
+* ``compute_dtype`` (``[training] precision = bfloat16`` or ``float16``)
+  mirrors the JAX package's policy (``utils/precision.py``
+  ``cast_apply_fn``): copies in that dtype of every parameter (the DSBN
+  affine and the PReLU slope included) and of the input feed the forward
+  through ``torch.func.functional_call``, so the f32 masters stay
+  untouched and receive f32 gradients; the DSBN running
   statistics stay f32 buffers and the batch statistics accumulate in f32;
   the logits are cast to f32 before the loss. ``torch.autocast`` would keep
   the affine terms and slope in f32 and choose per op, which is another
-  policy.
+  policy. As in the JAX package there is no loss scaling at f16.
 
 A multi-head network (deep supervision, DualBranch, URPC, CCT) returns a
 list: the loss gets the whole list, and the train dice, the entropy term,
@@ -159,7 +160,8 @@ class _Step:
         return gather_segments(out, segments or (out.shape[0],), self.mesh)
 
     def _params(self):
-        """bf16 copies of the parameters (None at f32: the module's own)."""
+        """Copies of the parameters in the compute dtype (None at f32: the
+        module's own)."""
         if self.compute_dtype is None:
             return None
         return {k: p.to(self.compute_dtype)

@@ -9,17 +9,17 @@ running_var/num_batches_tracked``; statistics are f32 buffers, eps 1e-5.
 * Eval mode normalises with the running statistics and applies the
   following PReLU in the same fused kernel (``ops/dsbn_prelu.py``).
 * Train mode normalises with the batch statistics (over every axis but
-  channels, accumulated in f32 even for a bf16 input; biased variance) and
-  updates only the selected bank: momentum 0.1, unbiased variance
-  ``n / (n - 1)`` with n the batch times spatial size, and
+  channels, accumulated in f32 even for a bf16 or f16 input; biased
+  variance) and updates only the selected bank: momentum 0.1, unbiased
+  variance ``n / (n - 1)`` with n the batch times spatial size, and
   ``num_batches_tracked`` + 1, as torch's BatchNorm does. PReLU then runs as
   a second plain step, as in the JAX package's ``_norm_act``. Both steps are
   PyTorch's own ``batch_norm`` and ``prelu``: the JAX package computes the
   variance as ``E[x^2] - E[x]^2`` clamped at 0, which equals torch's to f32
   rounding. The affine parameters enter ``batch_norm`` in the dtype of the
   running statistics, f32 (the mixed-type form torch accepts for a bf16
-  input), so a bf16 forward normalises in f32 and rounds once; JAX rounds
-  the affine terms to bf16 first.
+  or f16 input), so a bf16 or f16 forward normalises in f32 and rounds
+  once; JAX rounds the affine terms to the input's dtype first.
 
 ``BatchNorm`` is the plain one-bank BatchNorm of the other networks (the JAX
 package's ``models/dsbn.py:76-81``): the same f32 statistics, momentum and

@@ -18,11 +18,14 @@ convolutions produce: no channels-last transpose, no row padding.
   ``(B*C, cdiv(S, BLOCK))``: each program owns one channel row, loads that
   channel's four f32 parameters once, computes ``rsqrt(var + eps)`` in f32,
   streams BLOCK contiguous elements (masked ragged tail) in f32 and stores in
-  the input dtype (f32 or bf16).
+  the input dtype: f32, bf16 or f16, rounded once at the store (the TPU
+  kernel's f32 math inside, and its f32 / bf16 / f16 in and out). One
+  ``@triton.jit`` source; Triton specialises it per input dtype.
 * The domain ``d`` is a Python int; the wrapper selects the table row with a
   view (``scale[d]``), so nothing syncs with the host.
-* Scale and bias may be bf16 parameters under ``[testing] precision =
-  bfloat16``; the wrapper upcasts them to f32, as the TPU kernel does.
+* Scale and bias may be bf16 or f16 parameters under ``[testing] precision
+  = bfloat16`` or ``float16``; the wrapper upcasts them to f32, as the TPU
+  kernel does. The running statistics stay f32 buffers.
 
 ``dsbn_prelu`` takes the plain version ``dsbn_prelu_reference`` only for a
 CPU tensor. For a CUDA tensor it launches the kernel or raises. The kernel
@@ -46,9 +49,9 @@ _MAX_BLOCK = 4096
 
 
 def _check(x, scale, bias, mean, var, domain, alpha):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError('dsbn_prelu takes float32 or bfloat16, got {0}'
-                        .format(x.dtype))
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError('dsbn_prelu takes float16, float32 or bfloat16, got '
+                        '{0}'.format(x.dtype))
     if x.dim() < 2:
         raise ValueError('dsbn_prelu takes [B, C, *spatial], got shape {0}'
                          .format(tuple(x.shape)))

@@ -1,17 +1,19 @@
-"""Precision policy: bf16 compute with f32 state.
+"""Precision policy: bf16 or f16 compute with f32 state.
 
-* ``[testing] precision = bfloat16`` casts the network's parameters to bf16
-  while the DSBN running statistics (buffers) stay f32, and the Inferer
-  casts the volume on the host (round to nearest even). Sliding-window
-  accumulation and TTA averaging stay f32.
-* ``[training] precision = bfloat16`` never casts the module: the train
-  step forwards bf16 copies of the f32 master parameters
-  (``engine/train.py``). In-training validation rounds the volume as the
-  Inferer does and computes in f32 with the training module, as the JAX
-  package's validation promotes a bf16 volume against f32 variables.
-* ``matmul_precision = highest`` turns TF32 off for cuDNN convolutions and
-  matmuls; otherwise PyTorch's defaults hold (f32 convolutions run in TF32
-  on the card).
+* ``[testing] precision = bfloat16`` or ``float16`` casts the network's
+  parameters to that dtype while the DSBN running statistics (buffers) stay
+  f32, and the Inferer casts the volume on the host (round to nearest
+  even). Sliding-window accumulation and TTA averaging stay f32.
+* ``[training] precision = bfloat16`` or ``float16`` never casts the
+  module: the train step forwards copies of the f32 master parameters in
+  that dtype (``engine/train.py``). In-training validation rounds the
+  volume as the Inferer does and computes in f32 with the training module,
+  as the JAX package's validation promotes a rounded volume against f32
+  variables. As in the JAX package there is no loss scaling: an f16
+  gradient that underflows is zero.
+* ``matmul_precision`` sets both TF32 flags, process-wide, for every
+  accepted value (``MATMUL_TF32``), so a later stage of one process does
+  not inherit an earlier stage's value.
 """
 from __future__ import annotations
 
@@ -23,16 +25,27 @@ from torch import nn
 _ALIASES = {
     'float32': None, 'f32': None, 'fp32': None, None: None, '': None,
     'bfloat16': torch.bfloat16, 'bf16': torch.bfloat16,
+    'float16': torch.float16, 'fp16': torch.float16,
+}
+
+# matmul_precision -> (torch.backends.cudnn.allow_tf32,
+# torch.backends.cuda.matmul.allow_tf32). JAX's names of its three levels
+# and their aliases; 'default' is PyTorch's own default (TF32 convolutions,
+# f32 matmuls). JAX also takes XLA dot-algorithm names, which have no
+# PyTorch counterpart.
+MATMUL_TF32 = {
+    'highest': (False, False), 'float32': (False, False),
+    'high': (True, True), 'tensorfloat32': (True, True),
+    'default': (True, False), 'bfloat16': (True, False),
 }
 
 
 def resolve_dtype(name) -> Optional[torch.dtype]:
-    """Config string -> compute dtype (None = keep f32, no casting).
-    float16 is not ported: the DSBN+PReLU kernel takes f32 and bf16."""
+    """Config string -> compute dtype (None = keep f32, no casting)."""
     key = name.lower() if isinstance(name, str) else name
     if key not in _ALIASES:
-        raise ValueError('Undefined precision {0!r} (use float32 or '
-                         'bfloat16)'.format(name))
+        raise ValueError('Undefined precision {0!r} (use float32/bfloat16/'
+                         'float16)'.format(name))
     return _ALIASES[key]
 
 
@@ -54,15 +67,18 @@ def cast_infer_module(module: nn.Module, precision) -> nn.Module:
 
 
 def apply_matmul_precision(config: dict, stage: str = 'test') -> None:
-    """Honor ``matmul_precision``: 'highest' disables TF32 for cuDNN
-    convolutions and CUDA matmuls, process-wide; any other value keeps
-    PyTorch's defaults. The section matching the running stage wins."""
+    """Honor ``matmul_precision``: set both TF32 flags from ``MATMUL_TF32``,
+    process-wide; an unknown value raises. The section matching the running
+    stage wins ([testing] for test/inference, [training] otherwise); with
+    neither set, the flags stay as they are."""
     order = (('testing', 'training') if stage in ('test', 'inference')
              else ('training', 'testing'))
     for section in order:
         val = config.get(section, {}).get('matmul_precision', None)
         if val:
-            if str(val) == 'highest':
-                torch.backends.cudnn.allow_tf32 = False
-                torch.backends.cuda.matmul.allow_tf32 = False
+            if str(val) not in MATMUL_TF32:
+                raise ValueError('Undefined matmul_precision {0!r} (use one '
+                                 'of {1})'.format(val, ', '.join(MATMUL_TF32)))
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = MATMUL_TF32[str(val)]
             return

@@ -275,3 +275,96 @@ def test_tables_name_jax_names_the_port_still_lacks():
         assert not _in_port(_counterpart(rel), name), key
         assert value, key
     assert not set(NOT_PORTED) & set(MOVED)
+
+
+# -- config values ----------------------------------------------------------
+#
+# The names above say nothing of the values a config key accepts. Every
+# dict literal with three or more string keys that a JAX module binds to a
+# name (at any depth: a module table, a function's local) must have all
+# its string keys in the port's dict literals of that name in the
+# counterpart module, or be listed here: in TABLES_NOT_PORTED with the
+# reason, or in TABLES_RENAMED with a second name the port uses for it (a
+# name a dict literal is bound to, or a function that returns one).
+
+_PAYLOAD = ('a JAX checkpoint payload template (params, batch_stats, '
+            'opt_state): the port writes the reference .pt layout '
+            '(engine/ckpt.py)')
+
+TABLES_NOT_PORTED = {
+    'fpl_plus_tpu/agents/agent_seg.py:payload': _PAYLOAD,
+    'fpl_plus_tpu/engine/ckpt.py:payload': _PAYLOAD,
+    'fpl_plus_tpu/engine/ckpt.py:template': _PAYLOAD,
+    'fpl_plus_tpu/utils/torch_convert.py:CLS_CONVERTERS': _TORCH_CONVERT,
+}
+
+TABLES_RENAMED = {
+    'fpl_plus_tpu/io/dataset.py:sample': '_image_sample',
+    '__graft_entry__.py:net_cfg': 'NET_CFG',
+}
+
+
+def _dict_tables(rel, returns=False):
+    """``{name: string keys}`` of the dict literals bound to a name in a
+    file of the repo (the union over literals of one name); with
+    ``returns``, also those a function returns, under its name."""
+    path = os.path.join(ROOT, rel)
+    if not os.path.isfile(path):
+        return {}
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+
+    def add(name, node, minimum):
+        keys = {k.value for k in node.keys
+                if isinstance(k, ast.Constant) and isinstance(k.value, str)}
+        if len(keys) >= minimum:
+            out.setdefault(name, set()).update(keys)
+
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Assign, ast.AnnAssign)) and isinstance(
+                node.value, ast.Dict):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                if isinstance(t, ast.Name):
+                    add(t.id, node.value, 1 if returns else 3)
+        elif returns and isinstance(node, (ast.FunctionDef,
+                                           ast.AsyncFunctionDef)):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Return) and isinstance(sub.value,
+                                                              ast.Dict):
+                    add(node.name, sub.value, 1)
+    return out
+
+
+@pytest.mark.parametrize('rel', JAX_FILES)
+def test_every_jax_table_has_its_keys_in_the_port(rel):
+    port = _dict_tables(_counterpart(rel), returns=True)
+    missing = {}
+    for name, keys in sorted(_dict_tables(rel).items()):
+        key = '{0}:{1}'.format(rel, name)
+        if key in TABLES_NOT_PORTED:
+            continue
+        lacking = keys - port.get(name, set()) - port.get(
+            TABLES_RENAMED.get(key), set())
+        if lacking:
+            missing[name] = sorted(lacking)
+    assert not missing, ('{0}: keys not in the tables of {1}, nor listed in '
+                         'TABLES_NOT_PORTED: {2}'.format(
+                             rel, _counterpart(rel), missing))
+
+
+def test_table_lists_name_jax_tables_the_port_lacks():
+    """Each listed table is a JAX table of three or more string keys; a
+    TABLES_NOT_PORTED entry still lacks some of its keys in the port (else
+    it has gone stale), and each reason is given."""
+    for key, value in list(TABLES_NOT_PORTED.items()) + list(
+            TABLES_RENAMED.items()):
+        rel, name = key.split(':')
+        keys = _dict_tables(rel).get(name)
+        assert keys and value, key
+        if key in TABLES_NOT_PORTED:
+            port = _dict_tables(_counterpart(rel), returns=True)
+            assert keys - port.get(name, set()), key
+    assert not set(TABLES_NOT_PORTED) & set(TABLES_RENAMED)
