@@ -1,0 +1,9 @@
+"""The share of the slice in which no kernel, copy or fill ran on the
+card (%), in a test-stage cell."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or ctx.stage != 'test':
+        return None
+    return 100.0 * (1.0 - t.busy_us() / t.length_us)
