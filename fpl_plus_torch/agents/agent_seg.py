@@ -25,7 +25,8 @@ Training (``train_valid``, reference :689-831, JAX :417-803):
 * the per-domain train streams are produced by the loaders' worker
   processes and collated, pinned and paired in a thread (``prefetch_iter``)
   while the card steps; the time the loop waits on
-  them is logged and written as the ``host_wait`` scalar;
+  them (the ``train_loader_wait`` counter) is logged and written as the
+  ``host_wait`` scalar;
 * every ``iter_valid`` iterations: per-domain whole-volume validation
   through the Inferer (``val_t1`` / ``val_t2`` select the domain that
   counts), the plateau step, best tracking, ``iter_save`` checkpoints and
@@ -115,6 +116,16 @@ volume loop (not ``ckpt_mode = 3``). The step calls run inside the spans
 ``train_step`` and ``dis_step``, each validation volume's forward inside
 ``validation_forward``, and the Inferer's entries inside their own
 (``infer_run``, ...). Under a mesh each rank writes its own trace.
+
+Layer boundaries (spans, which also add to ``trace_metrics``' counter
+table, traced or not): the test stage's ``test_loader_wait`` (the loop
+blocked on the test loader; its producer thread counts
+``test_loader_produce``), the Inferer's ``infer_fetch``, ``infer_forward``
+and ``infer_accumulate``, and ``save_outputs`` with ``save_geometry_read``
+and ``save_nifti_write`` inside it; the stage closes with one line of
+these counters' growth. Training: ``train_loader_wait`` (and
+``train_loader_produce``), ``optimizer_step``, ``validation`` and
+``ckpt_submit``, and the writer thread's ``ckpt_write``.
 """
 from __future__ import annotations
 
@@ -150,7 +161,8 @@ from fpl_plus_torch.utils.image_process import convert_label
 from fpl_plus_torch.utils.post_process import PostProcessDict
 from fpl_plus_torch.utils.precision import cast_infer_module, resolve_dtype
 from fpl_plus_torch.utils.scalar_writer import ScalarWriter
-from fpl_plus_torch.utils.trace_metrics import span, start_trace, stop_trace
+from fpl_plus_torch.utils.trace_metrics import (counters, counters_since,
+                                                span, start_trace, stop_trace)
 
 FPL_PASSES = 6
 DIS_LR, DIS_BETAS = 1e-4, (0.5, 0.999)
@@ -185,6 +197,26 @@ def _crop(label: np.ndarray, margins) -> np.ndarray:
     lo, up = margins
     return label[(slice(None),) + tuple(
         slice(a, s - b) for a, b, s in zip(lo, up, label.shape[1:]))]
+
+
+def _log_test_stage(before, t0: float, volumes: int) -> None:
+    """The test stage's closing line: its volumes, wall seconds and rate,
+    and per volume the loader's produce and wait, the fetch's wait and the
+    save, in ms, from what the counter table (``utils/trace_metrics.py``)
+    gained since the snapshot ``before``, taken at ``t0``."""
+    wall = time.perf_counter() - t0
+    got = counters_since(before)
+
+    def per_volume_ms(name):
+        return 1e3 * got.get(name, (0, 0.0))[1] / max(volumes, 1)
+
+    logging.info('testing: %d volumes in %.3f s, %.3f volumes/s; per '
+                 'volume: loader produce %.2f ms, loader wait %.2f ms, '
+                 'fetch wait %.2f ms, save %.2f ms', volumes, wall,
+                 volumes / wall if wall > 0 else 0.0,
+                 per_volume_ms('test_loader_produce'),
+                 per_volume_ms('test_loader_wait'),
+                 per_volume_ms('infer_fetch'), per_volume_ms('save_outputs'))
 
 
 def grad_accum_steps(cfg_t: dict) -> int:
@@ -521,20 +553,20 @@ class SegmentationAgent(NetRunAgent):
         profile_dir = cfg_t.get('profile_dir', None)
         if profile_dir:
             start_trace(profile_dir, self.device, self._trace_rank())
-        batches = prefetch_iter(self._train_batches(), depth=2)
+        batches = prefetch_iter(self._train_batches(), depth=2,
+                                name='train_loader')
         glob_it = iter_start
         module.train()
+        run_counts = counters()
         try:
             for block_start in range(iter_start, iter_max, iter_valid):
                 lr_value = optimizer.param_groups[0]['lr']
                 t0 = time.time()
-                wait = 0.0
+                block_counts = counters()
                 acc: Dict[str, List] = {}
                 for sub_it in range(iter_valid):
                     it = block_start + sub_it
-                    tw = time.time()
                     host = next(batches)
-                    wait += time.time() - tw
                     if mesh is not None:
                         host = shard_batch(host, mesh)
                     dev = _to_device(host, self.device)
@@ -559,8 +591,13 @@ class SegmentationAgent(NetRunAgent):
                 if profile_dir:
                     stop_trace()
                     profile_dir = None
-                valid_scalars = self.validation()
-                t2 = time.time()
+                with span('validation'):
+                    valid_scalars = self.validation()
+                block = counters_since(block_counts)
+                wait, produce, opt_s, valid_s = (
+                    block.get(k, (0, 0.0))[1] for k in (
+                        'train_loader_wait', 'train_loader_produce',
+                        'optimizer_step', 'validation'))
                 glob_it = block_start + iter_valid
 
                 scale = plateau.step(valid_scalars['plateau_metric'])
@@ -570,13 +607,15 @@ class SegmentationAgent(NetRunAgent):
 
                 logging.info('it %d', glob_it)
                 logging.info('learning rate %s', lr_value)
-                logging.info('training/validation time: %.2fs/%.2fs; host '
-                             'wait %.4fs per iteration', t1 - t0, t2 - t1,
-                             wait / iter_valid)
+                logging.info('training/validation time: %.2fs/%.2fs; per '
+                             'iteration: host wait %.4fs, loader produce '
+                             '%.4fs, optimizer step %.4fs', t1 - t0,
+                             valid_s, wait / iter_valid,
+                             produce / iter_valid, opt_s / iter_valid)
                 self._write_scalars(writer, train_scalars, valid_scalars,
                                     lr_value, glob_it, class_num)
                 writer.add_scalars('time', {'train': t1 - t0,
-                                            'valid': t2 - t1}, glob_it)
+                                            'valid': valid_s}, glob_it)
                 writer.add_scalar('host_wait', wait / iter_valid, glob_it)
 
                 if valid_scalars['avg_dice'] > max_val_dice:
@@ -586,26 +625,34 @@ class SegmentationAgent(NetRunAgent):
                 stop_now = (early_stop_it is not None
                             and glob_it - max_val_it > early_stop_it)
                 if glob_it in iter_save_list or stop_now:
-                    ckpt_writer.submit(ckpt_dir, prefix, glob_it,
-                                       self._ckpt_state(module.state_dict(),
-                                                        optimizer),
-                                       valid_scalars['avg_dice'])
+                    with span('ckpt_submit'):
+                        ckpt_writer.submit(
+                            ckpt_dir, prefix, glob_it,
+                            self._ckpt_state(module.state_dict(), optimizer),
+                            valid_scalars['avg_dice'])
                 if stop_now:
                     logging.info('The training is early stopped')
                     break
             # a final checkpoint and latest pointer also when iter_valid
             # does not divide the run (the reference then saves none)
             if glob_it > iter_start and glob_it not in iter_save_list:
-                ckpt_writer.submit(ckpt_dir, prefix, glob_it,
-                                   self._ckpt_state(module.state_dict(),
-                                                    optimizer),
-                                   max_val_dice)
+                with span('ckpt_submit'):
+                    ckpt_writer.submit(
+                        ckpt_dir, prefix, glob_it,
+                        self._ckpt_state(module.state_dict(), optimizer),
+                        max_val_dice)
             # the best-performing checkpoint (reference :809-828)
             if best_state is not None:
-                ckpt_writer.submit(ckpt_dir, prefix, max_val_it,
-                                   self._ckpt_state(best_state, optimizer),
-                                   max_val_dice, update_latest=False)
+                with span('ckpt_submit'):
+                    ckpt_writer.submit(ckpt_dir, prefix, max_val_it,
+                                       self._ckpt_state(best_state,
+                                                        optimizer),
+                                       max_val_dice, update_latest=False)
             ckpt_writer.close()   # artifacts durable before the pointer
+            ckpts = counters_since(run_counts)
+            logging.info('checkpoints: %d submitted in %.3fs, %d written '
+                         'in %.3fs', *ckpts.get('ckpt_submit', (0, 0.0)),
+                         *ckpts.get('ckpt_write', (0, 0.0)))
         finally:
             batches.close()       # stops the producer thread
             writer.close()
@@ -804,30 +851,26 @@ class SegmentationAgent(NetRunAgent):
             return self._selection_margins(data, dim) if device_label \
                 else None
 
-        infer_times, uncertainty = [], {}
+        uncertainty = {}
 
-        def record_fpl(name, vars_, boundary, t0):
+        def record_fpl(name, vars_, boundary):
             uncer_one = 1 if boundary < 50 else vars_ / boundary
             uncertainty[name] = [uncer_one]
             logging.info('%s %s', name, uncer_one)
-            infer_times.append(time.time() - t0)
 
         # the one-deep pipeline (JAX :849-1048): volume i+1, or loader batch
         # b+1, is dispatched before volume i's fetch, crop or host inverse
         # and save, so the host's work on i overlaps the card's on i+1
-        pending = None       # ('volume' | 'batch', fetch, data, t0, margins)
-        pending_fpl = None   # (fetch, name, t0): a device-reduced FPL pass
+        pending = None       # ('volume' | 'batch', fetch, data, margins)
+        pending_fpl = None   # (fetch, name): a device-reduced FPL pass
 
         def finish(entry):
-            kind, fetch, p_data, p_t0, p_margins = entry
+            kind, fetch, p_data, p_margins = entry
             if kind == 'batch':
                 labels = fetch()
                 for i, (data, m) in enumerate(zip(p_data, p_margins)):
                     data['predict_label'] = _crop(labels[i:i + 1], m)
                     self.save_outputs(data)
-                # per volume: the batch's time over its volumes
-                infer_times.extend([(time.time() - p_t0) / len(p_data)]
-                                   * len(p_data))
                 return
             if p_margins is not None:
                 p_data['predict_label'] = _crop(fetch(), p_margins)
@@ -835,19 +878,20 @@ class SegmentationAgent(NetRunAgent):
             else:
                 p_data['predict'] = fetch()
                 self.save_outputs(self._host_inverse(p_data))
-            infer_times.append(time.time() - p_t0)
 
         def finish_fpl(entry):
-            fetch, name, p_t0 = entry
-            record_fpl(name, *fetch(), p_t0)
+            fetch, name = entry
+            record_fpl(name, *fetch())
 
         volume_index = 0
         # the volume loop (JAX :845-847,1050-1051)
         profile_dir = cfg_test.get('profile_dir', None)
         if profile_dir:
             start_trace(profile_dir, self.device, self._trace_rank())
+        before, t0 = counters(), time.perf_counter()
         try:
-            for batch_data in prefetch_iter(self.test_loader):
+            for batch_data in prefetch_iter(self.test_loader,
+                                            name='test_loader'):
                 samples = list(_split_batch(batch_data))
                 if len(samples) > 1 and not tt_dropout:
                     # batched serving: a collated batch is same-shape, so its
@@ -855,17 +899,15 @@ class SegmentationAgent(NetRunAgent):
                     images = np.asarray(batch_data['image'], np.float32)
                     margins = [margins_of(d, images.ndim - 2) for d in samples]
                     if all(m is not None for m in margins):
-                        t0 = time.time()
                         fetch = label_inf.run_batch_async(predictor, images)
                         if pending is not None:
                             finish(pending)
-                        pending = ('batch', fetch, samples, t0, margins)
+                        pending = ('batch', fetch, samples, margins)
                         volume_index += len(samples)
                         continue
                 for data in samples:
                     images = np.asarray(data['image'], np.float32)
                     margins = margins_of(data, images.ndim - 2)
-                    t0 = time.time()
                     pred = predictor
                     if tt_dropout:
                         fold = self._pass_fold(predictor, volume_index,
@@ -877,7 +919,7 @@ class SegmentationAgent(NetRunAgent):
                             pred, images, FPL_PASSES, margins)
                         if pending_fpl is not None:
                             finish_fpl(pending_fpl)
-                        pending_fpl = (fetch, _name_of(data), t0)
+                        pending_fpl = (fetch, _name_of(data))
                     elif fpl:
                         # host fallback, fetched at once (JAX :972-1016):
                         # per-pass logits, inverse and softmax on the host
@@ -887,14 +929,14 @@ class SegmentationAgent(NetRunAgent):
                             self._host_inverse(dict(
                                 data, predict=passes[i:i + 1]))['predict'],
                             axis=1) for i in range(FPL_PASSES)])
-                        record_fpl(_name_of(data), *fpl_host_reduce(maps), t0)
+                        record_fpl(_name_of(data), *fpl_host_reduce(maps))
                     else:
                         inferer = label_inf if margins is not None \
                             else logits_inf
                         fetch = inferer.run_async(pred, images)
                         if pending is not None:
                             finish(pending)
-                        pending = ('volume', fetch, data, t0, margins)
+                        pending = ('volume', fetch, data, margins)
             if pending is not None:
                 finish(pending)
             if pending_fpl is not None:
@@ -908,9 +950,7 @@ class SegmentationAgent(NetRunAgent):
                     np.asarray(pairs, dtype=object))
             logging.info('FPL uncertainty list saved (%d volumes)',
                          len(pairs))
-        if infer_times:
-            arr = np.asarray(infer_times)
-            logging.info('testing time %s +/- %s', arr.mean(), arr.std())
+        _log_test_stage(before, t0, volume_index)
 
     def infer_with_multiple_checkpoints(self, ckpt_names: List[str],
                                         domain_label: int):
@@ -919,11 +959,11 @@ class SegmentationAgent(NetRunAgent):
         host inverse and the save."""
         modules = [self._loaded_module(name) for name in ckpt_names]
         _, logits_inf = self._inferers()
-        infer_times = []
-        for batch_data in prefetch_iter(self.test_loader):
+        volumes = 0
+        before, t0 = counters(), time.perf_counter()
+        for batch_data in prefetch_iter(self.test_loader, name='test_loader'):
             for data in _split_batch(batch_data):
                 images = np.asarray(data['image'], np.float32)
-                t0 = time.time()
                 # every checkpoint's forward is dispatched before the one
                 # fetch below (JAX :1104-1110; its fold of the checkpoints
                 # into one dispatch, :1083-1099, is not followed: ROADMAP.md
@@ -934,10 +974,8 @@ class SegmentationAgent(NetRunAgent):
                         for m in modules]).mean(0)
                 data['predict'] = logits.cpu().numpy()
                 self.save_outputs(self._host_inverse(data))
-                infer_times.append(time.time() - t0)
-        if infer_times:
-            arr = np.asarray(infer_times)
-            logging.info('testing time %s +/- %s', arr.mean(), arr.std())
+                volumes += 1
+        _log_test_stage(before, t0, volumes)
 
     def save_outputs(self, data: Dict):
         """Labels (``predict_label``, or softmax then argmax of the logits
@@ -947,38 +985,41 @@ class SegmentationAgent(NetRunAgent):
         computes the labels; global rank 0 writes them."""
         if not is_primary_host():
             return
-        cfg_test = self.config['testing']
-        output_dir = cfg_test['output_dir']
-        ignore_dir = cfg_test.get('filename_ignore_dir', True)
-        label_source = cfg_test.get('label_source', None)
-        label_target = cfg_test.get('label_target', None)
-        fname_src = cfg_test.get('filename_replace_source', None)
-        fname_tgt = cfg_test.get('filename_replace_target', None)
-        ckpt_dir = self.config['training']['ckpt_save_dir'].split('/')[-1]
-        subset = self.config['dataset']['test_csv'].split('/')[-1][:-4]
-        output_dir = os.path.join(output_dir, ckpt_dir + '_' + subset)
-        os.makedirs(output_dir, exist_ok=True)
+        with span('save_outputs'):
+            cfg_test = self.config['testing']
+            output_dir = cfg_test['output_dir']
+            ignore_dir = cfg_test.get('filename_ignore_dir', True)
+            label_source = cfg_test.get('label_source', None)
+            label_target = cfg_test.get('label_target', None)
+            fname_src = cfg_test.get('filename_replace_source', None)
+            fname_tgt = cfg_test.get('filename_replace_target', None)
+            ckpt_dir = self.config['training']['ckpt_save_dir'].split(
+                '/')[-1]
+            subset = self.config['dataset']['test_csv'].split('/')[-1][:-4]
+            output_dir = os.path.join(output_dir, ckpt_dir + '_' + subset)
+            os.makedirs(output_dir, exist_ok=True)
 
-        names = data['names']
-        if 'predict_label' in data:
-            output = np.asarray(data['predict_label'], np.uint8)
-        else:
-            prob = scipy.special.softmax(np.asarray(data['predict']), axis=1)
-            output = np.asarray(np.argmax(prob, axis=1), np.uint8)
-        if label_source is not None and label_target is not None:
-            output = convert_label(output, label_source, label_target)
-        if self.postprocessor is not None:
+            names = data['names']
+            if 'predict_label' in data:
+                output = np.asarray(data['predict_label'], np.uint8)
+            else:
+                prob = scipy.special.softmax(np.asarray(data['predict']),
+                                             axis=1)
+                output = np.asarray(np.argmax(prob, axis=1), np.uint8)
+            if label_source is not None and label_target is not None:
+                output = convert_label(output, label_source, label_target)
+            if self.postprocessor is not None:
+                for i in range(output.shape[0]):
+                    output[i] = self.postprocessor(output[i])
+            root_dir = self.config['dataset']['root_dir']
             for i in range(output.shape[0]):
-                output[i] = self.postprocessor(output[i])
-        root_dir = self.config['dataset']['root_dir']
-        for i in range(output.shape[0]):
-            name = names[i]
-            if isinstance(name, (list, tuple)):
-                name = name[0]
-            save_name = name.split('/')[-1] if ignore_dir else \
-                name.replace('/', '_')
-            if fname_src is not None and fname_tgt is not None:
-                save_name = save_name.replace(fname_src, fname_tgt)
-            save_path = '{0}/{1}'.format(output_dir, save_name)
-            save_nd_array_as_image(output[i], save_path,
-                                   root_dir + '/' + name)
+                name = names[i]
+                if isinstance(name, (list, tuple)):
+                    name = name[0]
+                save_name = name.split('/')[-1] if ignore_dir else \
+                    name.replace('/', '_')
+                if fname_src is not None and fname_tgt is not None:
+                    save_name = save_name.replace(fname_src, fname_tgt)
+                save_path = '{0}/{1}'.format(output_dir, save_name)
+                save_nd_array_as_image(output[i], save_path,
+                                       root_dir + '/' + name)

@@ -43,6 +43,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from fpl_plus_torch.parallel.multihost import is_primary_host
+from fpl_plus_torch.utils.trace_metrics import span
 
 
 def ckpt_prefix_of(config: dict) -> str:
@@ -201,7 +202,8 @@ class CheckpointWriter:
             try:
                 if item is None:
                     return
-                save_checkpoint(*item)
+                with span('ckpt_write'):   # a thread: counted, not traced
+                    save_checkpoint(*item)
             except BaseException as exc:   # re-raised by flush()
                 if self._error is None:    # keep the first error
                     self._error = exc

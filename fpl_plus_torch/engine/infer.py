@@ -84,7 +84,12 @@ Each dispatch (``run_async``, ``run_logits``, ``run_batch_async``,
 span ``infer_<entry>`` of its synchronous entry (``infer_run``,
 ``infer_run_logits``, ``infer_run_batch``, ``infer_run_passes``,
 ``infer_run_fpl_uncertainty``; ``utils/trace_metrics.py`` ``span``): one
-span per dispatch, as JAX's trace has one program per call.
+span per dispatch, as JAX's trace has one program per call. Inside it each
+forward runs in ``infer_forward`` and each chunk's overlap adds in
+``infer_accumulate``; a fetch waits and formats in ``infer_fetch``. The
+device lane mirrors a range with the work launched inside it and not
+inside a range nested in it: the dispatch's mirror still runs from its
+copy in to its copy out.
 
 Layout: volumes are ``[N, C, *img]`` channels-first, flip axes H = -2,
 W = -1.
@@ -98,7 +103,7 @@ import numpy as np
 import torch
 
 from fpl_plus_torch.utils.precision import resolve_dtype
-from fpl_plus_torch.utils.trace_metrics import traced
+from fpl_plus_torch.utils.trace_metrics import span, traced
 
 
 def window_grid(img_shape: Sequence[int], window: Sequence[int],
@@ -254,7 +259,11 @@ def _fetch_of(tensors: Sequence[torch.Tensor], form: Callable,
     ``form`` of them at once."""
     if tensors[0].device.type == 'cpu':
         result = form([t.numpy() for t in tensors])
-        return lambda: result
+
+        def fetch_done():
+            with span('infer_fetch'):
+                return result
+        return fetch_done
     stream = torch.cuda.current_stream(tensors[0].device)
     hosts = []
     for t in tensors:
@@ -265,8 +274,9 @@ def _fetch_of(tensors: Sequence[torch.Tensor], form: Callable,
     done.record(stream)
 
     def fetch():
-        done.synchronize()
-        return form([h.numpy() for h in hosts])
+        with span('infer_fetch'):
+            done.synchronize()
+            return form([h.numpy() for h in hosts])
     fetch.staged = staged        # alive until the fetch is dropped
     return fetch
 
@@ -422,7 +432,8 @@ class Inferer:
             sts = mine[i:i + chunk].tolist()
             patches = torch.stack([variants[_box(st, window)] for st in sts],
                                   1)
-            preds = self._forward(predictor, patches.flatten(0, 1))
+            with span('infer_forward'):
+                preds = self._forward(predictor, patches.flatten(0, 1))
             if outs is None:
                 wins = [tuple(p.shape[2:]) for p in preds]
                 outs = [torch.zeros(
@@ -430,11 +441,12 @@ class Inferer:
                                             for d in range(len(w))),
                     dtype=torch.float32, device=self.device)
                     for p, w in zip(preds, wins)]
-            for out, pred, win in zip(outs, preds, wins):
-                pred = pred.reshape((v, len(sts)) + pred.shape[1:])
-                for j, st in enumerate(sts if add else ()):
-                    s0 = [s * w // n for s, w, n in zip(st, win, window)]
-                    out[_box(s0, win)] += pred[:, j]
+            with span('infer_accumulate'):
+                for out, pred, win in zip(outs, preds, wins):
+                    pred = pred.reshape((v, len(sts)) + pred.shape[1:])
+                    for j, st in enumerate(sts if add else ()):
+                        s0 = [s * w // n for s, w, n in zip(st, win, window)]
+                        out[_box(s0, win)] += pred[:, j]
         if shard:
             for out in outs:
                 self.mesh.all_reduce(out)
@@ -477,11 +489,12 @@ class Inferer:
         if windowed:
             return [_unflip_mean(o, n, tta) for o in self._sliding_window(
                 predictor, variants, window, stride, shard_windows)]
+        with span('infer_forward'):
+            heads = self._forward(predictor, variants)
         padded = variants.shape[2:]
         return [_unflip_mean(o, n, tta)[(slice(None), slice(None)) + tuple(
             slice(0, int(s * (o.shape[2 + d] / padded[d])))
-            for d, s in enumerate(img_shape))]
-            for o in self._forward(predictor, variants)]
+            for d, s in enumerate(img_shape))] for o in heads]
 
     @staticmethod
     def _one(heads: List):

@@ -80,6 +80,7 @@ from torch.func import functional_call
 from fpl_plus_torch.engine.optim import count_update, set_scheduled_lr
 from fpl_plus_torch.losses.util import get_classwise_dice, reshape_to_2d
 from fpl_plus_torch.parallel.mesh import gather_segments
+from fpl_plus_torch.utils.trace_metrics import span
 
 Batch = Dict[str, torch.Tensor]
 Generators = Optional[List[torch.Generator]]
@@ -228,7 +229,8 @@ class _Step:
             sum_gradients([p for g in self.optimizer.param_groups
                            for p in g['params']], self.mesh)
         set_scheduled_lr(self.optimizer, self.schedule)
-        self.optimizer.step()
+        with span('optimizer_step'):
+            self.optimizer.step()
         count_update(self.optimizer)
 
 

@@ -70,10 +70,19 @@ def load_image_as_nd_array(image_name: str) -> dict:
 
 def save_array_as_nifty_volume(data: np.ndarray, image_name: str,
                                reference_name: str = None) -> None:
+    """``data`` as a volume file with the geometry of ``reference_name``'s
+    (decoded whole for it, in the span ``save_geometry_read``); the encode
+    and write run in ``save_nifti_write``."""
+    # imported here: the loader pool's workers import this module, and no
+    # torch
+    from fpl_plus_torch.utils.trace_metrics import span
     geom = ImageGeometry()
     if reference_name is not None:
-        geom = read_image(reference_name).geometry
-    write_image(NiftiImage(data=np.asarray(data), geometry=geom), image_name)
+        with span('save_geometry_read'):
+            geom = read_image(reference_name).geometry
+    with span('save_nifti_write'):
+        write_image(NiftiImage(data=np.asarray(data), geometry=geom),
+                    image_name)
 
 
 def save_array_as_rgb_image(data: np.ndarray, image_name: str) -> None:

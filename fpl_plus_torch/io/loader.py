@@ -62,7 +62,7 @@ import time
 import traceback
 import types
 from multiprocessing import shared_memory
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -413,17 +413,25 @@ def repeat_loader(loader) -> Iterator:
             yield from loader
 
 
-def prefetch_iter(iterable, depth: int = 2):
+def prefetch_iter(iterable, depth: int = 2, name: Optional[str] = None):
     """Thread-backed look-ahead over any iterable: item i+1's production
     (NIfTI decode, transform chain — gzip/numpy release the GIL) overlaps
     the consumer's work on item i. Used by the agent's test stage so host
     decode hides under device inference, and around its train batches;
     errors re-raise at the consumer. Closing the generator returns once
-    the producer thread has finished the item in hand."""
+    the producer thread has finished the item in hand.
+
+    ``name`` (``test_loader``, ``train_loader``): the consumer's waits run
+    in the span ``<name>_wait`` (``utils/trace_metrics.py``), and each
+    item the producer draws adds its seconds to the counter
+    ``<name>_produce`` (a thread the profiler does not record)."""
+    # imported here: the pool's workers load this module, and no torch
+    from fpl_plus_torch.utils.trace_metrics import count, span
     q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
     sentinel = object()
     failure = []
     stop = threading.Event()
+    wait = (lambda: span(name + '_wait')) if name else contextlib.nullcontext
 
     def _put_until_stop(item) -> bool:
         while not stop.is_set():
@@ -436,7 +444,14 @@ def prefetch_iter(iterable, depth: int = 2):
 
     def _producer():
         try:
-            for item in iterable:
+            items = iter(iterable)
+            while True:
+                t0 = time.perf_counter()
+                item = next(items, sentinel)
+                if item is sentinel:
+                    break
+                if name:
+                    count(name + '_produce', time.perf_counter() - t0)
                 if not _put_until_stop(item):
                     return
         except BaseException as exc:   # surface to the consumer
@@ -447,7 +462,8 @@ def prefetch_iter(iterable, depth: int = 2):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with wait():
+                item = q.get()
             if item is sentinel:
                 if failure:
                     raise failure[0]

@@ -12,6 +12,14 @@ device activity the range launched. Those mirrors are the counterpart of
 JAX's module events. A benchmark reads its ``device_ms`` from them, a
 figure that host jitter cannot move.
 
+Every span also counts, with the profiler on or off and on any thread: its
+calls and ``time.perf_counter`` seconds add up in a process-wide table
+under its name (``counters``; ``counters_since`` gives a stage its own
+share). A range opened in a thread other than the one that started the
+profiler is not recorded in the trace, so the test loader's producer
+thread and the checkpoint writer's thread are seen through the table
+alone.
+
 Trace files: ``start_trace(dir, device, rank)`` / ``stop_trace()`` write
 one gzipped chrome trace per call, ``dir/trace_<time>[_rank<r>]
 .pt.trace.json.gz``; under a mesh each rank writes its own. On the CPU the
@@ -21,7 +29,6 @@ a CPU process.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import glob
 import gzip
@@ -29,10 +36,10 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 DEVICE_LANE = 'gpu_user_annotation'
@@ -52,12 +59,67 @@ PRIME_CYCLES = 20000
 PRIME_KERNEL = 'spin_kernel'       # torch.cuda._sleep's kernel
 
 
-def span(name: str):
-    """``record_function(name)`` while a profiler runs; otherwise a no-op
-    context whose cost is one flag check."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+# calls and seconds per span name, for the whole process; the producer
+# and writer threads add to it too
+_COUNTS: Dict[str, List] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, seconds: float) -> None:
+    """Add one call of ``seconds`` to the table's entry ``name``."""
+    with _COUNTS_LOCK:
+        entry = _COUNTS.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += seconds
+
+
+def counters() -> Dict[str, Tuple[int, float]]:
+    """A snapshot of the table: ``{name: (calls, seconds)}``."""
+    with _COUNTS_LOCK:
+        return {k: (v[0], v[1]) for k, v in _COUNTS.items()}
+
+
+def counters_since(before: Dict[str, Tuple[int, float]]
+                   ) -> Dict[str, Tuple[int, float]]:
+    """What the table gained since the snapshot ``before``: ``{name:
+    (calls, seconds)}`` of the names called since."""
+    out = {}
+    for k, (calls, seconds) in counters().items():
+        calls0, seconds0 = before.get(k, (0, 0.0))
+        if calls > calls0:
+            out[k] = (calls - calls0, seconds - seconds0)
+    return out
+
+
+class _Span:
+    """``span``'s context: the profiler's range when a profiler runs on
+    this thread, and the table's count either way."""
+
+    __slots__ = ('name', 'range', 't0')
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = (torch.profiler.record_function(self.name).__enter__()
+                      if torch.autograd._profiler_enabled() else None)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        count(self.name, seconds)
+        return False
+
+
+def span(name: str) -> _Span:
+    """A program span: ``record_function(name)`` while a profiler runs on
+    the calling thread, and always one call and its elapsed seconds added
+    to the counter table under ``name``. It waits for nothing and launches
+    nothing."""
+    return _Span(name)
 
 
 def traced(name: str):
@@ -242,13 +304,3 @@ def traced_device_ms(fn: Callable[[], None], n_rep: int,
         if not module_events_us(trace_dir):
             return None
         return device_busy_us(trace_dir) / n_rep / 1e3
-
-
-def dominant_module_median_ms(trace_root: str) -> Optional[float]:
-    """Median duration (ms) of the span with the most total device time:
-    the per-dispatch figure for single-program benchmarks."""
-    per_span = module_events_us(trace_root)
-    if not per_span:
-        return None
-    name = max(per_span, key=lambda k: sum(per_span[k]))
-    return float(np.median(per_span[name])) / 1e3

@@ -9,14 +9,21 @@ against the JAX package's.
   before the first validation, as JAX's ``agents/agent_seg.py:618-622``),
   and checkpoints bit-equal to the same run without ``profile_dir``.
 * ``cli test`` with ``[testing] profile_dir``: one trace with one
-  ``infer_run`` span per volume, labels equal to the run without it;
-  ``ckpt_mode = 3`` writes no trace (JAX returns before its trace starts).
+  ``infer_run``, ``infer_fetch`` and ``save_outputs`` span per volume, a
+  ``test_loader_wait`` per volume and one for the stream's end, an
+  ``infer_forward`` and an ``infer_accumulate`` per chunk of the window
+  grid, the save's geometry read and NIfTI write inside ``save_outputs``;
+  labels equal to the run without it; ``ckpt_mode = 3`` writes no trace
+  (JAX returns before its trace starts).
 * ``trace_metrics``: the same device events written in JAX's layout
   (``plugins/profile/<run>/host.trace.json.gz``, a ``/device:TPU:0``
   process with an 'XLA Modules' thread) and in torch's
   (``gpu_user_annotation`` spans) read the same in both packages; nested
   and overlapping spans count once; a trace without a device lane gives
   ``{}``, 0 and None in both.
+* the counter table: a span opened in a thread other than the profiler's
+  counts, and is absent from the trace (last here: the profiler has
+  started in this process before, which takes seconds the first time).
 
 All on the CPU at tiny widths; no JAX program is compiled. The profiler
 records the host lane only here, so the device readers are checked on
@@ -25,8 +32,10 @@ written traces.
 import glob
 import gzip
 import json
+import math
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -35,6 +44,7 @@ import torch
 import fpl_plus_tpu.utils.trace_metrics as jax_tm
 from fpl_plus_torch.cli import main as torch_main
 from fpl_plus_torch.cli import main_ssl
+from fpl_plus_torch.engine.infer import window_grid
 from fpl_plus_torch.io.image_io import load_image_as_nd_array
 from fpl_plus_torch.utils import trace_metrics as port_tm
 from tests.test_torch_port_models import one_torch_thread  # noqa: F401
@@ -49,10 +59,15 @@ def trace_files(trace_dir):
     return sorted(glob.glob(os.path.join(trace_dir, '*.pt.trace.json.gz')))
 
 
+def host_ranges(trace_dir):
+    """The ``record_function`` ranges on the host lane."""
+    return [e for e in port_tm.trace_events(trace_dir)
+            if e.get('ph') == 'X' and e.get('cat') == port_tm.HOST_LANE]
+
+
 def host_spans(trace_dir):
     """The names of the ``record_function`` ranges on the host lane."""
-    return [e['name'] for e in port_tm.trace_events(trace_dir)
-            if e.get('ph') == 'X' and e.get('cat') == port_tm.HOST_LANE]
+    return [e['name'] for e in host_ranges(trace_dir)]
 
 
 def assert_same(a, b, where=''):
@@ -169,8 +184,26 @@ def test_testing_profile_dir_traces_the_volume_loop(seg_workspace):
     assert torch_main(['test', cfg], device='cpu') == 0
     trace_dir = os.path.join(root, 'trace_test')
     assert len(trace_files(trace_dir)) == 1
-    spans = host_spans(trace_dir)
-    assert spans.count('infer_run') == N_TEST
+    ranges = host_ranges(trace_dir)
+    spans = [e['name'] for e in ranges]
+    for name in ('infer_run', 'infer_fetch', 'save_outputs',
+                 'save_geometry_read', 'save_nifti_write'):
+        assert spans.count(name) == N_TEST, name
+    # one wait a volume, and the one that finds the end of the stream
+    assert spans.count('test_loader_wait') == N_TEST + 1
+    # the test volumes are 12 x 24 x 24; CLI_CFG's window [8, 16, 16] at
+    # stride [6, 12, 12] and the Inferer's 2 windows a forward
+    chunks = math.ceil(len(window_grid((12, 24, 24), (8, 16, 16),
+                                       (6, 12, 12))) / 2)
+    assert chunks == 4
+    assert spans.count('infer_forward') == N_TEST * chunks
+    assert spans.count('infer_accumulate') == N_TEST * chunks
+    saves = [(float(e['ts']), float(e['ts']) + float(e['dur']))
+             for e in ranges if e['name'] == 'save_outputs']
+    for e in ranges:
+        if e['name'] in ('save_geometry_read', 'save_nifti_write'):
+            a, b = float(e['ts']), float(e['ts']) + float(e['dur'])
+            assert any(lo <= a and b <= hi for lo, hi in saves), e
     assert not [s for s in spans if s in ('train_step', 'validation_forward')]
     got = sorted(glob.glob(os.path.join(root, 'result_test', '*',
                                         '*.nii.gz')))
@@ -253,8 +286,7 @@ def write_torch_trace(root, spans, device=True, gz=True):
 
 
 def readings(tm, root):
-    return (tm.module_events_us(root), tm.device_busy_us(root),
-            tm.dominant_module_median_ms(root))
+    return tm.module_events_us(root), tm.device_busy_us(root)
 
 
 @pytest.mark.parametrize('gz', [True, False])
@@ -270,7 +302,6 @@ def test_trace_readers_match_jax_on_the_same_events(tmp_path, gz):
     write_torch_trace(str(tmp_path / 'reversed'), PROGRAMS[::-1], gz=gz)
     assert port_tm.module_events_us(str(tmp_path / 'reversed')) == want[0]
     assert got[1] == pytest.approx(want[1]) and want[1] == 143.5
-    assert got[2] == pytest.approx(want[2]) and want[2] == 0.040
     # each span's kernel runs half of it
     assert port_tm.kernel_busy_us(str(tmp_path / 'torch')) == 71.75
 
@@ -313,7 +344,7 @@ def test_trace_without_device_lane_reads_empty_in_both(tmp_path):
                      (port_tm, tmp_path / 'torch'),
                      (jax_tm, tmp_path / 'none'),
                      (port_tm, tmp_path / 'none')):
-        assert readings(tm, str(root)) == ({}, 0.0, None)
+        assert readings(tm, str(root)) == ({}, 0.0)
     assert port_tm.kernel_busy_us(str(tmp_path / 'torch')) == 0.0
 
 
@@ -340,3 +371,29 @@ def test_cpu_trace_files_and_traced_device_ms(tmp_path):
     assert host_spans(first) == ['train_step']
     assert port_tm.traced_device_ms(lambda: torch.ones(4).add_(1), 2,
                                     'ones') is None
+
+
+def test_a_thread_span_reaches_the_counters_not_the_trace(tmp_path):
+    before = port_tm.counters()
+    seen = {}
+
+    def worker():
+        seen['profiler'] = torch.autograd._profiler_enabled()
+        with port_tm.span('unit_thread'):
+            torch.ones(4).add_(1)
+
+    port_tm.start_trace(str(tmp_path), 'cpu')
+    try:
+        with port_tm.span('unit_main'):
+            thread = threading.Thread(target=worker)
+            thread.start()
+            thread.join(timeout=10)
+    finally:
+        path = port_tm.stop_trace()
+    assert not thread.is_alive()
+    assert seen == {'profiler': False}
+    grown = port_tm.counters_since(before)
+    assert grown['unit_thread'][0] == 1 and grown['unit_main'][0] == 1
+    names = [e['name'] for e in port_tm.trace_events(path)
+             if e.get('ph') == 'X' and e.get('cat') == port_tm.HOST_LANE]
+    assert names == ['unit_main']

@@ -115,6 +115,9 @@ NOT_PORTED = {
     'fpl_plus_tpu/utils/precision.py:cast_float_tree': _CAST,
     'fpl_plus_tpu/utils/precision.py:cast_apply_fn': _CAST,
     'fpl_plus_tpu/utils/precision.py:cast_infer_variables': _CAST,
+    'fpl_plus_tpu/utils/trace_metrics.py:dominant_module_median_ms':
+        'no reader of the port used it: the benchmark reads named spans '
+        '(benchmark/metrics/), the test stage logs its counters',
     'fpl_plus_tpu/utils/jaxcache.py:cpu_microarch_tag': _JAXCACHE,
     'fpl_plus_tpu/utils/jaxcache.py:harden_compilation_cache': _JAXCACHE,
     'fpl_plus_tpu/utils/torch_convert.py:convert_unet2d5_dsbn':
