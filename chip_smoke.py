@@ -10,17 +10,21 @@ then runs, each phase failing the script on any error:
 2. kernel: ``dsbn_prelu`` (Triton) against ``dsbn_prelu_reference`` (plain
    PyTorch) on the card, at every (C, spatial) shape a flagship window
    forward gives it (batch 8 = 4 TTA variants x patch_chunk 2) plus a ragged
-   one, domains 0 and 1, f32, bf16 and f16; CUDA-event times of the kernel
-   beside the byte bound, and at the largest shape, at each type, of the
-   plain version and of F.batch_norm + F.prelu (a two-call yardstick: no
-   single PyTorch call computes this function);
+   one, domains 0 and 1, f32, bf16 and f16, without and with a convolution's
+   bias folded in (at f32 bit for bit the bias ``add_`` and the bias-free
+   kernel); CUDA-event times of the kernel, of the kernel with the bias
+   folded in and of ``add_`` + the bias-free kernel, beside the byte
+   bound, and at the largest shape, at each type, of the plain version and
+   of F.batch_norm + F.prelu (a two-call yardstick: no single PyTorch call
+   computes this function);
 3. forward: one [1,1,28,128,128] eval window of the full-width UNet2D5_dsbn
    (random weights from a seeded torch.Generator, non-trivial running
    statistics, domain 1) on the card (kernel) and on the CPU (plain), TF32 off;
 4. serving: the pseudo-label test stage through ``fpl_plus_torch.cli.main``
    on 3 seeded 40x160x272 NIfTI volumes with the phase-3 weights saved as a
    reference-layout ``.pt`` checkpoint, at f32, bf16 and f16; the launch
-   counter must equal 18 x the network forwards of each run; the bf16 and
+   counter must equal 18 x the network forwards of each run, and the
+   conv-bias fold counter the launches; the bf16 and
    f16 labels' agreement with f32's;
 5. main-path kernel shapes: the kernel against its plain version at every
    shape of the FPL pass's forwards (batch 48 = 6 passes x 4 flips x
@@ -32,7 +36,8 @@ then runs, each phase failing the script on any error:
    then the FPL reduction of those logits on the card against the CPU;
 7. fpl: the ``fpl = True`` stage through ``fpl_plus_torch.cli.main`` on the
    phase-4 volumes at f32, bf16 and f16: a sorted ``.npy`` of 3 finite
-   entries, 3 x 6 network forwards, 18 launches each; CUDA-event time of the
+   entries, 3 x 6 network forwards, 18 launches each, each with its conv
+   bias folded in; CUDA-event time of the
    pass per volume and peak device memory; the bf16 and f16 lists against
    f32's (order, largest relative gap);
 8. batched: ``test_batch_size = 3`` serving through the CLI, timed, labels
@@ -41,11 +46,13 @@ then runs, each phase failing the script on any error:
 9. tools: ``python -m fpl_plus_torch.fpl pixel-weight`` (f32 vs bf16 labels)
    and ``image-weight`` (the f32 ``.npy``) into the weighted train CSV;
 10. grad refusal: the kernel's wrapper raises on the card when autograd
-    would need its backward (and runs under ``torch.no_grad()``);
+    would need its backward, for the tables or a conv bias (and runs under
+    ``torch.no_grad()``);
 11. train step, card vs CPU: one joint step of the full-width network
     (dropout 0, TF32 off, identical weights and one [28,128,128] crop per
     domain) through ``engine/train.py``: loss, both class dice, every
-    parameter's gradient and the updated DSBN running statistics;
+    parameter's gradient and the updated DSBN running statistics; no conv
+    bias folded;
 12. timed train step at the flagship setting (batch 4+4 crops of
     [28,128,128], ``train_fpl_uda`` DiceLoss with pixel and image weights,
     Adam, the network's dropout): median CUDA-event ms per step over 12
@@ -467,6 +474,38 @@ def random_tables(c, gen, dev):
             t(torch.rand(2, c, generator=gen) + 0.5))
 
 
+def conv_bias_check(x, tables, alpha, gen, dev):
+    """The kernel with a convolution's bias folded in, both domains: at f32
+    bit for bit the bias ``add_`` (as cuDNN's convolution adds it) followed
+    by the bias-free kernel; at bf16 and f16 within ``TOL`` of the plain
+    version. Returns the largest abs error against the plain version."""
+    from fpl_plus_torch.ops.dsbn_prelu import (dsbn_prelu,
+                                              dsbn_prelu_reference)
+    cb = torch.randn(x.shape[1], generator=gen).to(dev, x.dtype)
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    folds, worst = dsbn_prelu.bias_folds, 0.0
+    for d in (0, 1):
+        got = dsbn_prelu(x, *tables, d, alpha, conv_bias=cb)
+        if x.dtype == torch.float32:
+            want = dsbn_prelu(x.clone().add_(cb.reshape(view)), *tables, d,
+                              alpha)
+            check(torch.equal(got, want), 'the folded conv bias differs '
+                  'from add_ + kernel at {0} domain {1}'.format(
+                      tuple(x.shape), d))
+        want = dsbn_prelu_reference(x, *tables, d, alpha, conv_bias=cb)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = TOL[x.dtype]
+        check(bool((err <= tol + tol * want.float().abs()).all()),
+              'kernel with conv bias disagrees with plain at {0} {1} domain '
+              '{2}: max abs err {3}'.format(tuple(x.shape), x.dtype, d,
+                                            err.max().item()))
+        worst = max(worst, err.max().item())
+        del got, want, err
+    check(dsbn_prelu.bias_folds == folds + 2, 'bias folds not counted')
+    return worst
+
+
 def kernel_phase(dev, rate, batch=BATCH):
     from fpl_plus_torch.ops.dsbn_prelu import (dsbn_prelu,
                                               dsbn_prelu_reference)
@@ -495,13 +534,26 @@ def kernel_phase(dev, rate, batch=BATCH):
                                                err.max().item()))
                 max_err[dtype] = max(max_err[dtype], err.max().item())
                 del got, want, err
+            fold_err = conv_bias_check(x, tables, alpha, gen, dev)
+            max_err[dtype] = max(max_err[dtype], fold_err)
             ms = cuda_ms(lambda: dsbn_prelu(x, *tables, DOMAIN, alpha))
             bound = 2 * x.numel() * x.element_size() / rate * 1e3
-            rows[(shape, dtype)] = {'ms': ms, 'bound_ms': bound}
+            cb = torch.randn(shape[1], generator=gen).to(dev, dtype)
+            view = (1, -1) + (1,) * (x.dim() - 2)
+            scratch = x.clone()
+            fold_ms = cuda_ms(lambda: dsbn_prelu(x, *tables, DOMAIN, alpha,
+                                                 conv_bias=cb))
+            two_pass_ms = cuda_ms(lambda: dsbn_prelu(
+                scratch.add_(cb.reshape(view)), *tables, DOMAIN, alpha))
+            rows[(shape, dtype)] = {'ms': ms, 'bound_ms': bound,
+                                    'fold_ms': fold_ms,
+                                    'two_pass_ms': two_pass_ms}
             print('kernel {0} {1}: {2:.4f} ms, bound {3:.4f} ms ({4:.0%}), '
-                  'max abs err {5:.3g}'.format(
+                  'max abs err {5:.3g}; with the conv bias folded {6:.4f} '
+                  'ms, bias add_ + kernel {7:.4f} ms'.format(
                       list(shape), str(dtype).split('.')[-1], ms, bound,
-                      bound / ms, max_err[dtype]))
+                      bound / ms, max_err[dtype], fold_ms, two_pass_ms))
+            del scratch
         del x32, x
         torch.cuda.empty_cache()
     big = shapes[0]
@@ -560,15 +612,33 @@ def counting_macs(net):
     forwards in the block, counted from the module shapes: each output
     element of a conv is in_channels x taps MACs (a dense layer: in
     features); a k=2/s=2 transposed conv spreads each input element over
-    out_channels x taps outputs once."""
+    out_channels x taps outputs once. An eval forward runs a UNet2D5
+    ``ConvBlockND``'s convolutions without calling their modules (their
+    bias goes to the DSBN kernel), so those are counted at the DSBN that
+    follows each, whose input has the convolution's output shape."""
+    from fpl_plus_torch.models.unet2d5_dsbn import ConvBlockND
     macs = [0]
 
     def count(mod, args, out):
         n = args[0].numel() if isinstance(mod, TRANSPOSED) else out.numel()
         macs[0] += n * mod.weight[0].numel()
 
+    def count_before(conv):
+        def hook(mod, args):
+            macs[0] += args[0].numel() * conv.weight[0].numel()
+        return hook
+
+    followed = {}                        # DSBN -> the convolution before it
+    for block in net.modules():
+        if isinstance(block, ConvBlockND):
+            for conv, bn, _ in block._names:
+                followed[getattr(block, bn)] = getattr(block, conv)
+    skip = set(map(id, followed.values()))
     hooks = [m.register_forward_hook(count) for m in net.modules()
-             if isinstance(m, CONVS + TRANSPOSED + (torch.nn.Linear,))]
+             if isinstance(m, CONVS + TRANSPOSED + (torch.nn.Linear,))
+             and id(m) not in skip]
+    hooks += [bn.register_forward_pre_hook(count_before(conv))
+              for bn, conv in followed.items()]
     try:
         yield macs
     finally:
@@ -770,10 +840,14 @@ def serving_phase(root, net):
                 counting_forwards() as forwards:
             base = start_peak()
             dsbn_prelu.launches = 0      # the main path's count starts here
+            dsbn_prelu.bias_folds = 0
             rc = cli.main(['test', cfg])
             launches = dsbn_prelu.launches
             peak = torch.cuda.max_memory_allocated() - base
         check(rc == 0, 'test stage rc {0}'.format(rc))
+        check(dsbn_prelu.bias_folds == launches,
+              '{0} conv bias folds for {1} launches'.format(
+                  dsbn_prelu.bias_folds, launches))
         check(forwards[0] == N_VOLUMES * fwd_per_volume,
               '{0} forwards, expected {1}'.format(
                   forwards[0], N_VOLUMES * fwd_per_volume))
@@ -795,9 +869,9 @@ def serving_phase(root, net):
                               'peak': peak}
         print('serving {0}: {1} volumes through fpl_plus_torch.cli, '
               'Inferer.run_async ms per volume (CUDA events, dispatch to its '
-              'copy out) {2}, {3} forwards, {4} kernel launches, peak device '
-              'memory above the allocation before the stage {5:.3f} GiB, '
-              'foreground share {6:.4f}'.format(
+              'copy out) {2}, {3} forwards, {4} kernel launches (each with '
+              'its conv bias folded in), peak device memory above the '
+              'allocation before the stage {5:.3f} GiB, foreground share {6:.4f}'.format(
                   precision, len(labels),
                   ['{0:.2f}'.format(t) for t in vol_ms], forwards[0],
                   launches, peak / 2 ** 30,
@@ -883,10 +957,14 @@ def fpl_phase(root, dev, names, fwd_per_volume):
                 counting_forwards() as forwards:
             torch.cuda.reset_peak_memory_stats(dev)
             dsbn_prelu.launches = 0      # the main path's count starts here
+            dsbn_prelu.bias_folds = 0
             rc = cli.main(['test', cfg])
             launches = dsbn_prelu.launches
             peak = torch.cuda.max_memory_allocated(dev)
         check(rc == 0, 'fpl stage rc {0}'.format(rc))
+        check(dsbn_prelu.bias_folds == launches,
+              '{0} conv bias folds for {1} fpl launches'.format(
+                  dsbn_prelu.bias_folds, launches))
         check(forwards[0] == N_VOLUMES * fwd_per_volume,
               '{0} fpl forwards, expected {1}'.format(
                   forwards[0], N_VOLUMES * fwd_per_volume))
@@ -907,8 +985,8 @@ def fpl_phase(root, dev, names, fwd_per_volume):
         print('fpl {0}: {1} volumes through fpl_plus_torch.cli, '
               'run_fpl_uncertainty ms per volume (CUDA events, dispatch to '
               'its copy out) {2}, {3} forwards of batch '
-              '{4}, {5} kernel launches, peak device memory {6:.2f} GiB, '
-              'uncertainties {7}'.format(
+              '{4}, {5} kernel launches (each with its conv bias folded in), '
+              'peak device memory {6:.2f} GiB, uncertainties {7}'.format(
                   precision, len(values), ['{0:.2f}'.format(t) for t in ms],
                   forwards[0], FPL_BATCH, launches, peak / 2 ** 30, values))
     f32 = results['float32']['by_name']
@@ -1043,12 +1121,21 @@ def grad_refusal_phase(dev):
     else:
         refused = False
     check(refused, 'dsbn_prelu returned a tensor without a gradient path')
+    bias = torch.zeros(8, device=dev, requires_grad=True)
+    try:
+        dsbn_prelu(x, *(t.detach() for t in tables), DOMAIN, alpha.detach(),
+                   conv_bias=bias)
+    except RuntimeError as exc:
+        refused = 'no backward' in str(exc)
+    else:
+        refused = False
+    check(refused, 'dsbn_prelu took a conv bias that requires grad')
     with torch.no_grad():
         y = dsbn_prelu(x, *tables, DOMAIN, alpha)
     torch.cuda.synchronize()
     check(y.shape == x.shape, 'no_grad call')
-    print('grad refusal: the kernel raises under autograd and runs under '
-          'torch.no_grad()')
+    print('grad refusal: the kernel raises under autograd (a conv bias '
+          'that requires grad too) and runs under torch.no_grad()')
 
 
 def train_inputs(gen, batch, device):
@@ -1077,17 +1164,22 @@ def make_step(net, precision=None):
 
 
 def train_step_phase(dev):
-    """One joint step, card vs CPU, full width, dropout 0, TF32 off."""
+    """One joint step, card vs CPU, full width, dropout 0, TF32 off; it
+    folds no convolution's bias into the DSBN kernel."""
     from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
     net = create_network(dict(NET_CFG, dropout=[0.0] * 5))
     init_random_(net, SEED + 4)
     net_dev = copy.deepcopy(net).to(dev)
     gen = torch.Generator().manual_seed(SEED + 5)
     batches = [train_inputs(gen, 1, 'cpu') for _ in range(2)]
+    folds = dsbn_prelu.bias_folds
     with tf32_off():
         got = make_step(net_dev)([{k: v.to(dev) for k, v in b.items()}
                                   for b in batches], [None, None])
         torch.cuda.synchronize()
+    check(dsbn_prelu.bias_folds == folds, 'a train step folded {0} conv '
+          'biases'.format(dsbn_prelu.bias_folds - folds))
     want = make_step(net)(batches, [None, None])
     loss_err = abs(float(got['loss']) - float(want['loss']))
     dice_err = max(float((got[k].cpu() - want[k]).abs().max())
@@ -5846,7 +5938,7 @@ def main():
     per_volume = {}
     for precision, dtype in zip(PRECISIONS, DTYPES):
         fwd = serving[precision]['forwards'] / N_VOLUMES   # measured
-        k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in launch_shapes)
+        k_ms = fwd * sum(rows[(s, dtype)]['fold_ms'] for s in launch_shapes)
         b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in launch_shapes)
         v_ms = float(np.median(serving[precision]['vol_ms']))
         per_volume[precision] = (k_ms, b_ms, v_ms)
@@ -5863,7 +5955,7 @@ def main():
     fpl_kernel = {}
     for precision, dtype in zip(PRECISIONS, DTYPES):
         fwd = fpl[precision]['forwards'] / N_VOLUMES       # measured
-        k_ms = fwd * sum(rows[(s, dtype)]['ms'] for s in fpl_shapes)
+        k_ms = fwd * sum(rows[(s, dtype)]['fold_ms'] for s in fpl_shapes)
         b_ms = fwd * sum(rows[(s, dtype)]['bound_ms'] for s in fpl_shapes)
         v_ms = float(np.median(fpl[precision]['vol_ms']))
         fpl_kernel[precision] = (k_ms, b_ms)
@@ -5949,6 +6041,11 @@ def main():
         'ms': rows[(big, torch.float32)]['ms'], 'plain_ms': plain_ms,
         'bound_ms': rows[(big, torch.float32)]['bound_ms'],
         'bound_by': 'bytes', 'library_ms': None, 'yardstick_ms': yard_ms,
+        'conv_bias_fold': {
+            'ms': rows[(big, torch.float32)]['fold_ms'],
+            'two_pass_ms': rows[(big, torch.float32)]['two_pass_ms'],
+            'fpl_ms': rows[(big48, torch.float32)]['fold_ms'],
+            'fpl_two_pass_ms': rows[(big48, torch.float32)]['two_pass_ms']},
         'launches_per_volume': serving['float32']['launches'] // N_VOLUMES,
         'ms_per_volume': {p: v[0] for p, v in per_volume.items()},
         'bound_ms_per_volume': {p: v[1] for p, v in per_volume.items()},

@@ -7,7 +7,12 @@ keep the reference key names ``bns.{d}.weight/bias/running_mean/
 running_var/num_batches_tracked``; statistics are f32 buffers, eps 1e-5.
 
 * Eval mode normalises with the running statistics and applies the
-  following PReLU in the same fused kernel (``ops/dsbn_prelu.py``).
+  following PReLU in the same fused kernel (``ops/dsbn_prelu.py``). A
+  ``conv_bias`` handed to the forward is the preceding convolution's bias,
+  left out of that convolution: the kernel adds it to ``x`` before it
+  normalises, in the same pass (UNet2D5's ``ConvBlockND`` does this in
+  eval mode). Train mode takes none: there the convolution adds its own
+  bias, so the running mean tracks the biased activation.
 * Train mode normalises with the batch statistics (over every axis but
   channels, accumulated in f32 even for a bf16 or f16 input; biased
   variance) and updates only the selected bank: momentum 0.1, unbiased
@@ -43,6 +48,8 @@ biased variance, eps 1e-5, no affine terms and no running statistics; that
 is ``nn.InstanceNorm3d(affine=False)``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -100,16 +107,21 @@ class DomainBatchNorm(nn.Module):
         self.bns = nn.ModuleList(_Bank(features) for _ in range(num_domains))
 
     def forward(self, x: torch.Tensor, domain: int,
-                prelu_alpha: torch.Tensor) -> torch.Tensor:
-        """DSBN of ``x [B, C, ...]`` with bank ``domain``, followed by PReLU
-        with slope ``prelu_alpha``: one fused kernel on the card in eval
-        mode; batch statistics, the bank update and a separate PReLU in
-        train mode."""
+                prelu_alpha: torch.Tensor,
+                conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """DSBN of ``x [B, C, ...]`` (plus the per-channel ``conv_bias``,
+        when given) with bank ``domain``, followed by PReLU with slope
+        ``prelu_alpha``: one fused kernel on the card in eval mode; batch
+        statistics, the bank update and a separate PReLU in train mode."""
         if not self.training:
             tables = [torch.stack([getattr(b, k) for b in self.bns])
                       for k in ('weight', 'bias', 'running_mean',
                                 'running_var')]
-            return dsbn_prelu(x, *tables, domain, prelu_alpha, self.eps)
+            return dsbn_prelu(x, *tables, domain, prelu_alpha, self.eps,
+                              conv_bias)
+        if conv_bias is not None:
+            raise ValueError('conv_bias is folded in eval mode only: in train '
+                             'mode the convolution adds its own bias')
         if not 0 <= domain < len(self.bns):
             raise ValueError('domain {0} outside [0, {1})'.format(
                 domain, len(self.bns)))

@@ -16,7 +16,10 @@ Module names are the reference checkpoint keys (``block{i}.conv.conv{D}d_{j}``,
 ``out_conv``), so reference ``.pt`` state dicts load with ``strict=True``.
 Unlike the reference, a block allocates only the conv dimension it uses.
 DSBN follows ``module.train()`` / ``.eval()`` (``models/dsbn.py``: batch
-statistics and the bank update, or the fused eval kernel). Dropout is on
+statistics and the bank update, or the fused eval kernel). In eval mode a
+``ConvBlockND`` runs its convolutions without their bias and hands the
+bias to the DSBN kernel, which adds it in its own pass; the module tree
+and the state-dict keys are those of train mode. Dropout is on
 only when the forward is given ``dropout_generators``, never through
 ``module.train()``: the train step passes one generator per domain forward,
 MC-dropout at test time one per pass.
@@ -46,7 +49,11 @@ def _conv(dim: int):
 
 
 class ConvBlockND(nn.Module):
-    """Two (conv -> DSBN -> PReLU) stages with dropout between them."""
+    """Two (conv -> DSBN -> PReLU) stages with dropout between them.
+
+    In eval mode the convolutions run through ``F.conv{2,3}d`` without their
+    bias, which the DSBN kernel adds; hooks on these conv modules then do
+    not fire."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  num_domains: int, dim: int, dropout_p: float = 0.0):
@@ -61,13 +68,21 @@ class ConvBlockND(nn.Module):
             setattr(self, bn, DomainBatchNorm(out_channels, num_domains))
             setattr(self, relu, PReLU())
         self.dropout_p = float(dropout_p)
+        self._conv_fn = F.conv2d if dim == 2 else F.conv3d
 
     def forward(self, x, domain: int, dropout_generators=None):
-        for j, (conv, bn, relu) in enumerate(self._names):
+        for j, names in enumerate(self._names):
+            conv, bn, relu = (getattr(self, n) for n in names)
             if j == 1:
                 x = grouped_dropout(x, self.dropout_p, dropout_generators)
-            x = getattr(self, conv)(x)
-            x = getattr(self, bn)(x, domain, getattr(self, relu).weight)
+            if bn.training:
+                x = bn(conv(x), domain, relu.weight)
+            else:
+                # eval: the DSBN+PReLU kernel adds the bias in its own pass
+                x = bn(self._conv_fn(x, conv.weight, None, conv.stride,
+                                     conv.padding, conv.dilation,
+                                     conv.groups),
+                       domain, relu.weight, conv.bias)
         return x
 
 

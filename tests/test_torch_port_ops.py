@@ -81,3 +81,102 @@ def test_wrapper_rejects_bad_inputs():
     before = dsbn_prelu.launches
     dsbn_prelu(x, *tables, 1, alpha)
     assert dsbn_prelu.launches == before   # the CPU path launches nothing
+
+
+def _conv_bias_case(shape, seed):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.normal(size=shape).astype(np.float32))
+    tables = [torch.from_numpy(t) for t in _tables(rs, shape[1])]
+    cb = torch.from_numpy(rs.normal(size=shape[1]).astype(np.float32))
+    view = (1, -1) + (1,) * (len(shape) - 2)
+    return x, tables, cb, view
+
+
+@pytest.mark.parametrize('shape', [(3, 16, 5, 7), (2, 8, 3, 4, 5)])
+def test_conv_bias_equals_adding_it_first_at_f32(shape):
+    """The convolution's bias folded into the call equals the two-pass
+    route, ``x + conv_bias`` and then the call without it, bit for bit."""
+    x, tables, cb, view = _conv_bias_case(shape, len(shape))
+    alpha = torch.tensor([0.25])
+    two_pass = x + cb.reshape(view)
+    for d in (0, 1):
+        want = dsbn_prelu_reference(two_pass, *tables, d, alpha)
+        plain = dsbn_prelu_reference(x, *tables, d, alpha, conv_bias=cb)
+        folds = dsbn_prelu.bias_folds
+        wrapped = dsbn_prelu(x, *tables, d, alpha, conv_bias=cb)
+        assert dsbn_prelu.bias_folds == folds + 1
+        assert torch.equal(plain, want) and torch.equal(wrapped, want)
+        assert torch.equal(dsbn_prelu(two_pass, *tables, d, alpha), want)
+    assert dsbn_prelu.bias_folds == folds + 1   # no conv_bias, no fold
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_conv_bias_at_half_types_within_one_rounding(dtype):
+    """At bf16 / f16 the fold adds the bias in f32 and rounds once, at the
+    output; the two-pass route also rounds ``x + conv_bias`` to the input
+    type first. They differ by at most one output ulp plus that rounding
+    carried through the affine scale ``scale * rsqrt(var + eps)``."""
+    x, tables, cb, view = _conv_bias_case((2, 8, 3, 4, 5), 7)
+    x = x.to(dtype)
+    tables[0], tables[1] = tables[0].to(dtype), tables[1].to(dtype)
+    cb = cb.to(dtype)
+    alpha = torch.tensor([0.25], dtype=dtype)
+    exact = x.float() + cb.float().reshape(view)
+    two_pass = x + cb.reshape(view)
+    for d in (0, 1):
+        got = dsbn_prelu(x, *tables, d, alpha, conv_bias=cb)
+        assert got.dtype == dtype
+        assert torch.equal(got, dsbn_prelu_reference(
+            x, *tables, d, alpha, conv_bias=cb))
+        want = dsbn_prelu_reference(two_pass, *tables, d, alpha).float()
+        gain = (tables[0][d].float() * torch.rsqrt(tables[3][d] + 1e-5)
+                ).abs().reshape(view)
+        _, e = torch.frexp(torch.maximum(got.float().abs(), want.abs()))
+        ulp = torch.finfo(dtype).eps * torch.exp2(e.float() - 1)
+        tol = ulp + gain * (two_pass.float() - exact).abs()
+        assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_wrapper_rejects_bad_conv_bias():
+    rs = np.random.RandomState(8)
+    tables = [torch.from_numpy(t) for t in _tables(rs, 4)]
+    alpha = torch.tensor([0.25])
+    x = torch.zeros(2, 4, 6, 6)
+    for cb in (torch.zeros(3), torch.zeros(1, 4), torch.zeros(4, 1)):
+        with pytest.raises(ValueError, match=r'conv_bias must be \[C=4\]'):
+            dsbn_prelu(x, *tables, 0, alpha, conv_bias=cb)
+    with pytest.raises(ValueError, match='conv_bias must be'):
+        dsbn_prelu(x, *tables, 0, alpha,
+                   conv_bias=torch.zeros(4, device='meta'))
+
+
+def test_grad_refusal_covers_the_conv_bias():
+    """The card's kernel has no backward: the wrapper refuses a call whose
+    inputs, the convolution's bias among them, would need one."""
+    from fpl_plus_torch.ops.dsbn_prelu import _needs_backward
+    x = torch.zeros(2, 4, 6)
+    tables = [torch.ones(2, 4) for _ in range(4)]
+    alpha = torch.tensor([0.25])
+    bias = torch.nn.Parameter(torch.zeros(4))
+    assert _needs_backward(x, *tables, alpha, bias)
+    assert not _needs_backward(x, *tables, alpha, bias.detach())
+    assert not _needs_backward(x, *tables, alpha, None)
+    with torch.no_grad():
+        assert not _needs_backward(x, *tables, alpha, bias)
+
+
+@pytest.mark.parametrize('shape', [(3, 16, 5, 7), (2, 8, 3, 4, 5)])
+def test_conv_bias_matches_the_jax_reference_of_x_plus_bias(shape):
+    """The fold against the JAX package's unfused reference computed on
+    ``x + conv_bias``, where the convolution there adds its bias."""
+    from fpl_plus_tpu.ops import dsbn_prelu_reference as jax_reference
+    x, tables, cb, view = _conv_bias_case(shape, 9 + len(shape))
+    alpha = torch.tensor([0.25])
+    # the port's [N, C, *S] -> channels-last [N, *S, C]
+    x_cl = np.moveaxis((x + cb.reshape(view)).numpy(), 1, -1)
+    for d in (0, 1):
+        ref = np.moveaxis(np.asarray(jax_reference(
+            jnp.asarray(x_cl), *(jnp.asarray(t.numpy()) for t in tables),
+            jnp.int32(d), jnp.float32(0.25))), -1, 1)
+        got = dsbn_prelu(x, *tables, d, alpha, conv_bias=cb).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
