@@ -5,7 +5,11 @@ A cell is a workload of ``BENCHMARK.json``: a configuration file
 (``benchmark/configs/``), a traffic file (``benchmark/workloads/<traffic>
 .json``) and a limits file (``benchmark/limits/<cell>.json``); its metrics
 are the readers ``benchmark/metrics/<metric>.py``. Nothing here names a
-cell.
+cell or a network: a configuration's network is the plain reference file
+its ``reference`` key names (its interface: ``benchmark/README.md``), and
+a test stage's traced slice is guarded by the kernel names and program
+counter of its ``trace_guard`` key (the eval DSBN+PReLU kernel's where it
+has none).
 
 The program is driven through its agent, as a user runs it:
 ``SegmentationAgent.infer()`` for a test stage (pseudo-labels, or the FPL
@@ -37,6 +41,7 @@ import gc
 import importlib.util
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,13 +53,15 @@ import torch
 from benchmark.harness import judge, nifti, workspace
 from benchmark.harness.trace import Profiler, TraceView, check_events
 from benchmark.reference import serve
-from benchmark.reference.unet2d5_dsbn import (calibrate_foreground,
-                                                make_weights, work_per_window)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BENCH = os.path.join(ROOT, 'benchmark')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'fpl_plus_tpu')
+# the counter of a test stage's traced slice where a configuration names
+# no ``trace_guard``: the eval DSBN+PReLU kernel's launches, whose events
+# are ``kernels.json``'s ``dsbn_prelu`` names
+DEFAULT_COUNTER = 'fpl_plus_torch.ops.dsbn_prelu:dsbn_prelu.launches'
 
 
 class WindowClosed(Exception):
@@ -88,6 +95,32 @@ def reader(metric: str):
     return module.read
 
 
+def load_reference(path: str):
+    """The plain reference module at ``path`` (relative to the checkout),
+    loaded once a process."""
+    name = 'bench_reference_' + re.sub(r'\W', '_', path[:-len('.py')])
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, path))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
+
+
+def program_counter(path: str) -> int:
+    """The program's counter at ``path``, ``module:attribute.attribute``."""
+    module, attrs = path.split(':')
+    value = importlib.import_module(module)
+    for attr in attrs.split('.'):
+        value = getattr(value, attr)
+    return value
+
+
 def metrics_of(manifest: dict, cell: str, per_layer: bool):
     entries = manifest['per_layer' if per_layer else 'end_to_end']
     return [m for m in entries if cell in m.get('workloads', [cell])]
@@ -105,6 +138,8 @@ class Run:
                  device, control: Optional[dict] = None,
                  fault: Optional[str] = None, shrink=None):
         self.spec = spec
+        spec.setdefault('kernels', workspace.load_json(
+            os.path.join(BENCH, 'kernels.json')))
         self.seed = int(seed)
         self.seconds = float(seconds)
         self.trace = trace
@@ -116,6 +151,7 @@ class Run:
             config, traffic = shrink(config, traffic)
         self.config, self.traffic = config, traffic
         self.net_cfg = dict(config['network'])
+        self.reference = load_reference(config['reference'])
         self.fpl_passes = config.get('method', {}).get('fpl_passes', 6)
         seeds = derived_seeds(seed)
         self.random_seed = seeds['program']
@@ -160,7 +196,8 @@ class Run:
         for the judge. Where the traffic sets a ``foreground_share``, the
         head's bias is calibrated on the first window of
         ``calibration_volume`` (``calibrate_foreground``)."""
-        w = make_weights(self.net_cfg, self.weight_seed, self.device)
+        ref = self.reference
+        w = ref.make_weights(self.net_cfg, self.weight_seed, self.device)
         share = self.traffic.get('foreground_share')
         if share is not None:
             te = self.config['testing']
@@ -173,8 +210,8 @@ class Run:
                 (slice(None), slice(None)) + tuple(
                     slice(a, a + b) for a, b in zip(starts[0], win))]
             with judge.strict_f32():
-                calibrate_foreground(self.net_cfg, w, x,
-                                     te['domian_label'], share)
+                ref.calibrate_foreground(self.net_cfg, w, x,
+                                         te['domian_label'], share)
         self.host_w = {k: v.cpu() for k, v in w.items()}
         return self.host_w
 
@@ -187,13 +224,26 @@ class Run:
         self.stamps.append(time.perf_counter())
         if self.slice_at is None:
             return
-        from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
         a, b = self.slice_at
         if k == a:
             self.profiler = Profiler(self.device)
-            self.profiler.start(dsbn_prelu.launches)
+            self.profiler.start(self.launches())
         elif k == b and self.profiler is not None and self.profiler.running:
-            self.profiler.stop(dsbn_prelu.launches)
+            self.profiler.stop(self.launches())
+
+    def guard(self) -> Optional[dict]:
+        """The kernel names and the program counter of their launches
+        that guard a test stage's traced slice; None for a train stage,
+        whose kernels the program does not count."""
+        if self.stage == 'train':
+            return None
+        return self.config.get('trace_guard') or {
+            'names': self.spec['kernels']['dsbn_prelu']['names'],
+            'counter': DEFAULT_COUNTER}
+
+    def launches(self) -> int:
+        guard = self.guard()
+        return 0 if guard is None else program_counter(guard['counter'])
 
     def plan_slice(self, expected: int) -> None:
         if not self.trace:
@@ -203,16 +253,28 @@ class Run:
         self.slice_at = (a, a + count)
 
     def close_slice(self, ws, unit: str) -> None:
-        from fpl_plus_torch.ops.dsbn_prelu import dsbn_prelu
+        """Stop the trace and read it; in a test stage, raise where the
+        guard's kernel was not launched in the slice, or launched more often
+        than the trace holds its events."""
         if self.profiler is None:
             raise RuntimeError('the window ended before the traced slice')
         if self.profiler.running:
-            self.profiler.stop(dsbn_prelu.launches)
+            self.profiler.stop(self.launches())
+        guard = self.guard()
+        launched = self.profiler.launches[1] - self.profiler.launches[0]
+        if guard is not None and launched <= 0:
+            raise RuntimeError(
+                'the trace guard counted no launches in the traced slice: '
+                '{0} read {1[0]} at its start and {1[1]} at its end; the '
+                'configuration\'s trace_guard has to name a kernel of the '
+                'program that its test stage launches, and the counter of '
+                'those launches'.format(guard['counter'],
+                                        self.profiler.launches))
         self.view = TraceView(self.profiler.events(ws.path('trace.json')),
                               unit)
         os.remove(ws.path('trace.json'))
-        check_events(self.view, self.spec['kernels']['dsbn_prelu']['names'],
-                     self.profiler.launches[1] - self.profiler.launches[0])
+        if guard is not None:
+            check_events(self.view, guard['names'], launched)
         if self.view.periods < 2:
             raise RuntimeError('the traced slice holds {0} periods of {1}'
                                .format(self.view.periods, unit))
@@ -375,6 +437,7 @@ class Run:
 
     # -- training ----------------------------------------------------------
     def run_train(self, ws) -> dict:
+        judge.check_trainable(self.reference)
         from fpl_plus_torch.agents.agent_seg import SegmentationAgent
         t = self.traffic
         self.log('imports')
@@ -497,30 +560,44 @@ class Run:
 
     # -- the work the readers divide by -------------------------------------
     def work(self) -> dict:
+        """The work of one unit, from the reference's ``work_per_window``:
+        ``flops_by_class`` (``conv``, ``matmul``, ...), their sum
+        ``flops_per_item``, the ``precision``, and in a test stage for
+        each kernel the reference counts ``<key>_bytes_per_item`` and
+        ``<key>_launches_per_item`` under the reference's key."""
         d, te = self.sections['dataset'], self.sections['testing']
         tr = self.sections['training']
+        count = self.reference.work_per_window
         if self.stage == 'train':
             crop = d['RandomCrop_output_size']
-            macs, _ = work_per_window(self.net_cfg, crop)
-            return {'flops_per_item': 6.0 * macs * d['train_batch_size']
-                    * self.net_cfg['num_domains'],
+            macs = count(self.net_cfg, crop)['macs_by_class']
+            by_class = {c: 6.0 * m * d['train_batch_size']
+                        * self.net_cfg['num_domains']
+                        for c, m in macs.items()}
+            return {'flops_per_item': sum(by_class.values()),
+                    'flops_by_class': by_class,
                     'precision': tr.get('precision', 'float32')}
         window = te['sliding_window_size']
         shape = [max(s, w) for s, w in zip(self.traffic['volume_shape'],
                                            window)]
         starts, win = serve.grid(shape, window, te['sliding_window_stride'])
-        macs, elems = work_per_window(self.net_cfg, win)
         passes = self.fpl_passes if te.get('fpl', False) else 1
         variants = 4 if te.get('tta_mode', 0) else 1
         windows = len(starts) * variants * passes
         chunk = te.get('patch_chunk', 2)
         precision = te.get('precision', 'float32')
         itemsize = 4 if precision == 'float32' else 2
-        return {'flops_per_item': 2.0 * macs * windows,
-                'dsbn_bytes_per_item': 2.0 * elems * windows * itemsize,
-                'dsbn_launches_per_item': 18 * math.ceil(len(starts)
-                                                         / chunk),
-                'precision': precision}
+        per_window = count(self.net_cfg, win, itemsize)
+        by_class = {c: 2.0 * m * windows
+                    for c, m in per_window['macs_by_class'].items()}
+        work = {'flops_per_item': sum(by_class.values()),
+                'flops_by_class': by_class, 'precision': precision}
+        # the passes and the flips fold into the batch of each forward
+        forwards = math.ceil(len(starts) / chunk)
+        for key, k in per_window.get('kernels', {}).items():
+            work[key + '_bytes_per_item'] = float(k['bytes'] * windows)
+            work[key + '_launches_per_item'] = k['launches'] * forwards
+        return work
 
     def peaks(self) -> dict:
         table = self.spec['peaks']
@@ -553,8 +630,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     """One run of cell ``name``; returns the result line's fields and the
     compared numbers (``checks``)."""
     spec = spec or load_cell(name)
-    spec.setdefault('kernels', workspace.load_json(
-        os.path.join(BENCH, 'kernels.json')))
     spec.setdefault('peaks', workspace.load_json(
         os.path.join(BENCH, 'peaks.json')))
     # the program's kernel cache at a fixed path inside the checkout, so
@@ -626,12 +701,28 @@ class Context:
     def peaks(self) -> Optional[dict]:
         return self._run.peaks()
 
-    def peak_flops(self) -> Optional[float]:
-        """The published dense peak of the type the convolutions run in."""
+    def peak_flops(self, kind: str = 'conv') -> Optional[float]:
+        """The published dense peak of the type work of class ``kind``
+        runs in (``dense_peak``)."""
         peaks = self.peaks
         if peaks is None:
             return None
-        precision = self.work['precision']
-        if precision == 'float32' and torch.backends.cudnn.allow_tf32:
-            precision = 'tf32'
-        return peaks['dense_flops'][precision]
+        return dense_peak(peaks, self.work['precision'], kind)
+
+
+# whether float32 work of a class may run in TF32: convolutions through
+# cuDNN, matrix products through cuBLAS
+TF32_ALLOWED = {'conv': lambda: torch.backends.cudnn.allow_tf32,
+                'matmul': lambda: torch.backends.cuda.matmul.allow_tf32}
+
+
+def dense_peak(peaks: dict, precision: str, kind: str) -> float:
+    """The published dense peak for work of class ``kind`` at
+    ``precision``: at float32 the TF32 peak while that class's library may
+    use TF32, else the float32 one."""
+    if kind not in TF32_ALLOWED:
+        raise ValueError('no peak for work of class {0!r}; the classes are '
+                         '{1}'.format(kind, ', '.join(sorted(TF32_ALLOWED))))
+    if precision == 'float32' and TF32_ALLOWED[kind]():
+        precision = 'tf32'
+    return peaks['dense_flops'][precision]

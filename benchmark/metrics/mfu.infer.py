@@ -1,13 +1,15 @@
 """The whole served volume's share of the card's dense peak (%): the
-volumes' operations in the slice (2 x the convolutions' MACs of every
-window forward, ``work_per_window``) over the slice's time and the
-published peak of the type the convolutions run in (TF32 for float32
-while cuDNN may use it)."""
+volumes' operations in the slice (2 x the MACs of every window forward,
+by class of work, from the configuration's reference ``work_per_window``)
+over the slice's time, each class over the published peak of the type it
+runs in (at float32: TF32 for convolutions while cuDNN may use it, for
+matrix products while cuBLAS may)."""
 
 
 def read(ctx):
     t = ctx.trace
-    if t is None or ctx.stage != 'test' or ctx.peak_flops() is None:
+    if t is None or ctx.stage != 'test' or ctx.peaks is None:
         return None
-    flops = ctx.work['flops_per_item'] * t.periods
-    return 100.0 * flops / (t.length_us / 1e6) / ctx.peak_flops()
+    seconds = t.length_us / 1e6
+    return sum(100.0 * (flops * t.periods) / seconds / ctx.peak_flops(kind)
+               for kind, flops in ctx.work['flops_by_class'].items())

@@ -20,6 +20,21 @@ contiguous group of rows, uniform draws below ``1 - p`` are kept and
 scaled by ``1 / (1 - p)``), so the reference can draw the program's masks
 again from their seeds; a block allocates only the convolutions of its
 own dimension (the published block holds unused 2D and 3D copies).
+
+A configuration names this file under ``reference``; the harness loads
+it by that path and uses it only through this interface, which every
+network's reference file provides:
+
+* ``Net(net_cfg, weights)``, called as ``(x, domain, train=False,
+  generators=None)``: logits ``[N, class_num, D, H, W]``;
+* ``make_weights(net_cfg, seed, device)``: the seeded weights under the
+  program's state-dict names;
+* ``calibrate_foreground(net_cfg, weights, window, domain, share)``;
+* ``work_per_window(net_cfg, window, itemsize=4)``: one window's forward
+  as ``{'macs_by_class': {'conv': ...}, 'kernels': {'dsbn': {'bytes':
+  ..., 'launches': ...}}}``, the bytes at ``itemsize`` bytes an
+  activation element; a kernel's key is the prefix of the work keys its
+  roofline reads (``dsbn_bytes_per_item``).
 """
 from __future__ import annotations
 
@@ -263,13 +278,14 @@ class Net:
         return self._conv('out_conv', y, 3, (0, 1, 1))
 
 
-def work_per_window(net: dict, window) -> Tuple[int, int]:
-    """``(MACs, DSBN elements)`` of one window's forward, counted from the
-    shapes on the ``meta`` device: a convolution's output element costs
-    input channels x taps MACs, a k=2/s=2 transposed convolution spreads
-    each input element over output channels x taps outputs once; the DSBN
-    elements are the inputs of the 18 DSBN+PReLU stages."""
-    macs, elems = [0], [0]
+def count_per_window(net: dict, window) -> Tuple[int, int, int]:
+    """``(MACs, DSBN elements, DSBN stages)`` of one window's forward,
+    counted from the shapes on the ``meta`` device: a convolution's output
+    element costs input channels x taps MACs, a k=2/s=2 transposed
+    convolution spreads each input element over output channels x taps
+    outputs once; the DSBN elements are the inputs of the DSBN+PReLU
+    stages (18 a forward)."""
+    macs, elems, stages = [0], [0], [0]
 
     def on_conv(kind, x, w, out):
         n = x.numel() if kind == 'transposed' else out.numel()
@@ -277,6 +293,7 @@ def work_per_window(net: dict, window) -> Tuple[int, int]:
 
     def on_norm(x):
         elems[0] += x.numel()
+        stages[0] += 1
 
     weights = {name: torch.empty(shape, device='meta',
                                  dtype=torch.long if kind == 'count'
@@ -284,4 +301,15 @@ def work_per_window(net: dict, window) -> Tuple[int, int]:
                for name, shape, kind in param_spec(net)}
     x = torch.empty((1, net['in_chns']) + tuple(window), device='meta')
     Net(net, weights, on_conv=on_conv, on_norm=on_norm)(x, 0)
-    return macs[0], elems[0]
+    return macs[0], elems[0], stages[0]
+
+
+def work_per_window(net: dict, window, itemsize: int = 4) -> dict:
+    """One window's eval forward: its convolutions' MACs, and the eval
+    DSBN+PReLU kernel's bytes (each input element read once and each
+    output written once, at ``itemsize`` bytes) and launches (one a DSBN
+    stage, whatever the batch)."""
+    macs, elems, stages = count_per_window(net, window)
+    return {'macs_by_class': {'conv': macs},
+            'kernels': {'dsbn': {'bytes': 2 * elems * itemsize,
+                                 'launches': stages}}}

@@ -26,9 +26,13 @@ def test_parameters_of_the_published_network():
     assert n == 22140628
 
 
+def macs(net, window):
+    return work_per_window(net, window)['macs_by_class']['conv']
+
+
 def test_macs_per_window_forward():
-    macs, _ = work_per_window(NET, WINDOW)
-    assert round(macs / 1e9, 3) == 129.992
+    assert set(work_per_window(NET, WINDOW)['macs_by_class']) == {'conv'}
+    assert round(macs(NET, WINDOW) / 1e9, 3) == 129.992
 
 
 @pytest.mark.parametrize('cfg, passes, tflop', [('vs_t1s_g', 1, 12.48),
@@ -39,15 +43,15 @@ def test_flop_per_served_volume(cfg, passes, tflop):
     starts, win = serve.grid([40, 160, 272], t['sliding_window_size'],
                              t['sliding_window_stride'])
     assert len(starts) == 12
-    macs, _ = work_per_window(c['network'], win)
     assert passes == (c['method']['fpl_passes'] if t['fpl'] else 1)
-    assert round(2 * macs * len(starts) * 4 * passes / 1e12, 2) == tflop
+    assert round(2 * macs(c['network'], win) * len(starts) * 4 * passes
+                 / 1e12, 2) == tflop
 
 
 def test_flop_per_train_step():
     c = config('vs_t1s_g')
-    macs, _ = work_per_window(NET, c['dataset']['RandomCrop_output_size'])
-    step = 3 * 2 * macs * c['dataset']['train_batch_size'] * 2
+    step = 3 * 2 * macs(NET, c['dataset']['RandomCrop_output_size']) \
+        * c['dataset']['train_batch_size'] * 2
     assert round(step / 1e12, 2) == 6.24
 
 
@@ -63,5 +67,9 @@ def test_dsbn_elements_match_the_activation_shapes():
     # levels 3..0
     want = 2 * sum(f * v for f, v in zip(ft, vox)) \
         + 2 * sum(f * v for f, v in zip(ft[:4], vox[:4]))
-    _, elems = work_per_window(NET, WINDOW)
-    assert elems == want
+    # each input element read once and each output written once, in f32
+    # and at 2 bytes; one launch a DSBN stage, 2 in each of 9 blocks
+    for itemsize in (4, 2):
+        k = work_per_window(NET, WINDOW, itemsize)['kernels']
+        assert k == {'dsbn': {'bytes': 2 * want * itemsize,
+                              'launches': 18}}

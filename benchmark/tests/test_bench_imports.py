@@ -42,3 +42,21 @@ def test_the_prefix_is_not_the_name():
                          ids=os.path.basename)
 def test_reference_is_independent_of_the_program(path):
     assert 'fpl_plus_torch' not in set(top_level_imports(path))
+
+
+@pytest.mark.parametrize('path', sorted(sources('harness')),
+                         ids=os.path.basename)
+def test_the_harness_imports_no_network(path):
+    """A configuration's network comes from the file its ``reference``
+    key names; the harness imports none by name."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or '')
+            names.update('{0}.{1}'.format(node.module, a.name)
+                         for a in node.names)
+    assert not any('unet2d5_dsbn' in n for n in names), names

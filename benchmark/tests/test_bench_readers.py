@@ -70,11 +70,12 @@ def ctx(unit, stage, work):
              'hbm_bytes_per_s': 1e9}
     return SimpleNamespace(trace=TraceView(trace(unit), unit), stage=stage,
                            work=work, peaks=peaks, kernels=KERNELS,
-                           peak_flops=lambda: 1e12)
+                           peak_flops=lambda kind='conv': 1e12)
 
 
 def test_serving_readers():
     c = ctx('infer_run', 'test', {'flops_per_item': 1e6,
+                                  'flops_by_class': {'conv': 1e6},
                                   'dsbn_bytes_per_item': 8e4,
                                   'dsbn_launches_per_item': 2,
                                   'precision': 'float32'})
@@ -92,6 +93,7 @@ def test_serving_readers():
 
 def test_training_readers():
     c = ctx('train_step', 'train', {'flops_per_item': 1e6,
+                                    'flops_by_class': {'conv': 1e6},
                                     'precision': 'float32'})
     assert read('train_step_device_ms', c) == pytest.approx(0.1)
     # host ranges 220-240, 370-390, 530-550: gaps 130 and 140 us
