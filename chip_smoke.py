@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
-It builds the port's Triton kernel (cache under ``build/triton``) and the
+It builds the port's Triton kernels (cache under ``build/triton``) and the
 evaluation's C++ distance transform (``build/native``) from this checkout,
 then runs, each phase failing the script on any error:
 
@@ -279,6 +279,23 @@ then runs, each phase failing the script on any error:
     DSBN+PReLU kernel events as launches; the least kernel start less its
     launch call's start per trace (negative where the trace's device
     clock runs behind the host's).
+39. window attention (``ops/window_attention.py``, Triton, Swin UNETR's):
+    the kernel against ``window_attention_reference`` at the four stage
+    shapes of a batch-8 window forward of the benchmark's Swin UNETR
+    (SWIN_STAGES: 343, 343, 196 and 98 tokens, 3, 6, 12 and 24 heads),
+    unshifted and shifted, at f32 (and f32 with TF32 allowed), bf16 and
+    f16; CUDA-event times of the kernel, of the plain version and of
+    ``F.scaled_dot_product_attention`` with the bias and mask as a float
+    mask (the library yardstick; the port never calls it), beside the
+    bound (f32: operations over the f32 peak; bf16, f16: bytes); then the
+    full-width network on a [8, 1, 32, 128, 128] batch: an eval forward
+    launches the kernel 8 times (4 shifted) and agrees, TF32 off, with the
+    same module in train mode under no_grad (the plain attention, no
+    launch); the main path, the agent's test stage (``cli.main(['test',
+    cfg])``) on 3 volumes at the benchmark's [32, 128, 128] window, with
+    ``window_attention.launches`` and ``.shifted`` set to 0 just before it:
+    6 eval forwards a volume, 8 launches (4 shifted) each, labels in
+    {0, 1}; and the network's forward times at f32 and bf16.
 
 Phases 4, 7, 8, 17 and 34 time each Inferer dispatch that the stage makes
 (``run_async``, ``run_fpl_uncertainty``, ``run_batch_async``,
@@ -5789,6 +5806,274 @@ def launch_audit(path):
     return len(calls), len(lost), min(skew)
 
 
+# (tokens, channels, heads, padded grid, window) of each stage of a
+# [32, 128, 128] window forward of the benchmark's Swin UNETR
+SWIN_CFG = {'net_type': 'SwinUNETR', 'in_chns': 1, 'class_num': 2,
+            'feature_size': 48, 'depths': [2, 2, 2, 2],
+            'num_heads': [3, 6, 12, 24]}
+SWIN_WINDOW = (32, 128, 128)
+SWIN_STAGES = ((343, 48, 3, (21, 70, 70), (7, 7, 7)),
+               (343, 96, 6, (14, 35, 35), (7, 7, 7)),
+               (196, 192, 12, (4, 21, 21), (4, 7, 7)),
+               (98, 384, 24, (2, 14, 14), (2, 7, 7)))
+SWIN_SOURCE = 'fpl_plus_torch/ops/window_attention.py'
+# the kernel against its plain version: f32 -- the same f32 products and
+# sums in another order, exp by another instruction; TF32 -- both round
+# the operands to 10 mantissa bits, in other orders; bf16 and f16 -- both
+# round the probabilities to the input type before PV, so they differ by
+# an ulp of a probability where the f32 values straddle a rounding
+# boundary, and by one rounding of the output
+SWIN_TOL = {'float32': 1e-4, 'tf32': 2e-2, 'bfloat16': 3e-2,
+            'float16': 5e-3}
+# the network, eval (kernel) against train mode (plain) under no_grad,
+# f32 with TF32 off: ~40 layers of the same sums in other orders
+SWIN_FWD_TOL = 1e-3
+# phase 39's test stage: the benchmark cell's network, window and chunking
+SWIN_TEST_CFG = """
+[dataset]
+task_type = seg
+root_dir = {root}
+modal_num = 1
+test_csv = {root}/target_test.csv
+test_batch_size = 1
+test_transform = [NormalizeWithMeanStd, Pad]
+NormalizeWithMeanStd_channels = [0]
+Pad_output_size = [32, 128, 128]
+
+[network]
+net_type = SwinUNETR
+class_num = 2
+in_chns = 1
+feature_size = 48
+depths = [2, 2, 2, 2]
+num_heads = [3, 6, 12, 24]
+
+[training]
+ckpt_save_dir = {root}/model/gen
+
+[testing]
+ckpt_mode = 0
+domian_label = 0
+output_dir = {root}/out_swin
+sliding_window_enable = True
+sliding_window_size = [32, 128, 128]
+sliding_window_stride = [32, 128, 128]
+tta_mode = 1
+patch_chunk = 2
+precision = float32
+"""
+
+
+def swin_test_stage(net):
+    """Phase 39's main path: the agent's test stage (``cli.main(['test',
+    cfg])``: the loader, the sliding window with 4-flip TTA, the label
+    save) on Swin UNETR at the published widths and the benchmark's
+    [32, 128, 128] window, with the launch counters set to 0 just before
+    it. Returns (eval forwards, launches, shifted launches, labels)."""
+    from fpl_plus_torch import cli
+    from fpl_plus_torch.io.image_io import load_image_as_nd_array
+    from fpl_plus_torch.models.swin_unetr import SwinUNETR
+    from fpl_plus_torch.ops.window_attention import window_attention
+    forwards = [0]
+
+    def count(module, args, out):
+        if isinstance(module, SwinUNETR) and not module.training:
+            forwards[0] += 1
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, 'build')) as root:
+        names = write_volumes(root, range(N_VOLUMES),
+                              np.random.RandomState(SEED + 39))
+        write_csv(root, 'target_test.csv', names)
+        ckpt_dir = os.path.join(root, 'model', 'gen')
+        os.makedirs(ckpt_dir)
+        torch.save({'iteration': 100, 'valid_pred': 0.0,
+                    'model_state_dict': net.state_dict()},
+                   os.path.join(ckpt_dir, 'gen_100.pt'))
+        with open(os.path.join(ckpt_dir, 'gen_latest.txt'), 'w') as f:
+            f.write('100')
+        cfg = os.path.join(root, 'swin.cfg')
+        with open(cfg, 'w') as f:
+            f.write(SWIN_TEST_CFG.format(root=root))
+        hook = torch.nn.modules.module.register_module_forward_hook(count)
+        try:
+            window_attention.launches = 0   # the main path's count
+            window_attention.shifted = 0
+            rc = cli.main(['test', cfg])
+            launches = window_attention.launches
+            shifted = window_attention.shifted
+        finally:
+            hook.remove()
+        check(rc == 0, 'Swin UNETR test stage rc {0}'.format(rc))
+        labels = [load_image_as_nd_array(os.path.join(
+            root, 'out_swin', 'gen_target_test', os.path.basename(name)))[
+                'data_array'] for name in names]
+    return forwards[0], launches, shifted, labels
+
+
+def window_attention_phase(dev):
+    """Phase 39: the window-attention kernel and Swin UNETR on the card."""
+    from fpl_plus_torch.models.registry import create_network
+    from fpl_plus_torch.models.swin_unetr import shift_regions
+    from fpl_plus_torch.ops.window_attention import (
+        relative_position_index, window_attention,
+        window_attention_reference)
+    peak = {'float32': 6.7e13, 'bfloat16': 9.89e14, 'float16': 9.89e14}
+    rate = memory_rate(torch.cuda.get_device_name(dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    rows, worst = [], {}
+    for n, c, heads, dims, win in SWIN_STAGES:
+        nw = int(np.prod(dims)) // n
+        bw = BATCH * nw
+        qkv32 = torch.randn(bw, n, 3 * c, generator=gen, device=dev)
+        table32 = torch.randn(13 ** 3, heads, generator=gen, device=dev)
+        shift = tuple(0 if w < 7 else 3 for w in win)
+        regions = shift_regions(dims, win, shift).to(dev)
+        index = relative_position_index((7, 7, 7))[:n, :n].to(dev)
+        for precision in ('float32', 'tf32', 'bfloat16', 'float16'):
+            dtype = getattr(torch, precision if precision != 'tf32'
+                            else 'float32')
+            qkv, table = qkv32.to(dtype), table32.to(dtype)
+            torch.backends.cuda.matmul.allow_tf32 = precision == 'tf32'
+            try:
+                for reg in (None, regions):
+                    before = (window_attention.launches,
+                              window_attention.shifted)
+                    with torch.no_grad():
+                        got = window_attention(qkv, table, heads, (7, 7, 7),
+                                               reg)
+                        want = window_attention_reference(
+                            qkv, table, heads, (7, 7, 7), reg)
+                    torch.cuda.synchronize()
+                    check(window_attention.launches == before[0] + 1
+                          and window_attention.shifted
+                          == before[1] + (reg is not None),
+                          'window attention launches not counted')
+                    check(got.dtype == dtype and got.shape == (bw, n, c),
+                          'window attention output {0} {1}'.format(
+                              got.dtype, tuple(got.shape)))
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = SWIN_TOL[precision]
+                    check(err <= tol, 'window attention disagrees with '
+                          'plain at n {0}, {1}, shifted {2}: max abs err '
+                          '{3}'.format(n, precision, reg is not None, err))
+                    worst[precision] = max(worst.get(precision, 0.0), err)
+                    del got, want
+                    if precision == 'tf32':
+                        continue
+                    with torch.no_grad():
+                        ms = cuda_ms(lambda: window_attention(
+                            qkv, table, heads, (7, 7, 7), reg))
+                        plain_ms = cuda_ms(lambda: window_attention_reference(
+                            qkv, table, heads, (7, 7, 7), reg), reps=3)
+                        q, k, v = qkv.view(BATCH, nw, n, 3, heads,
+                                           c // heads).permute(
+                            3, 0, 1, 4, 2, 5).unbind(0)
+                        mask = table[index.reshape(-1)].reshape(
+                            n, n, heads).permute(2, 0, 1)[None]
+                        if reg is not None:
+                            mask = mask + (-100.0 * (
+                                reg[:, :, None] != reg[:, None, :])).to(
+                                dtype)[:, None]
+                        library_ms = cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask), reps=5)
+                        del q, k, v, mask
+                    flops = 4.0 * bw * n * n * c
+                    nbytes = (4 * bw * n * c + table.numel()) \
+                        * qkv.element_size()
+                    bound = max(flops / peak[precision], nbytes / rate) * 1e3
+                    rows.append({'tokens': n, 'channels': c, 'heads': heads,
+                                 'windows': bw, 'dtype': precision,
+                                 'shifted': reg is not None, 'ms': ms,
+                                 'bound_ms': bound,
+                                 'bound_by': ('operations' if flops
+                                              / peak[precision] > nbytes
+                                              / rate else 'bytes'),
+                                 'plain_ms': plain_ms,
+                                 'library_ms': library_ms})
+                    print('window attention n {0} C {1} heads {2} x {3} '
+                          '{4}{5}: {6:.4f} ms, bound {7:.4f} ms ({8:.0%}), '
+                          'plain {9:.3f} ms, SDPA {10:.3f} ms, max abs err '
+                          '{11:.3g}'.format(
+                              n, c, heads, bw, precision,
+                              ' shifted' if reg is not None else '', ms,
+                              bound, bound / ms, plain_ms, library_ms, err))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        del qkv32, table32, qkv, table
+        torch.cuda.empty_cache()
+    net = create_network(SWIN_CFG).to(dev)
+    pgen = torch.Generator().manual_seed(SEED + 40)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith('relative_position_bias_table'):
+                p.copy_(torch.randn(p.shape, generator=pgen))
+    x = torch.randn((BATCH, 1) + SWIN_WINDOW, generator=gen, device=dev)
+    with tf32_off(), torch.no_grad():
+        before = (window_attention.launches, window_attention.shifted)
+        got = net.eval()(x)
+        launches = window_attention.launches - before[0]
+        shifted = window_attention.shifted - before[1]
+        want = net.train()(x)
+        torch.cuda.synchronize()
+        check(window_attention.launches - before[0] == launches,
+              'train mode launched the window attention kernel')
+    check(launches == 8 and shifted == 4, 'a Swin UNETR forward launched '
+          '{0} window attentions ({1} shifted), not 8 (4)'.format(
+              launches, shifted))
+    check(bool(torch.isfinite(got).all()), 'non-finite Swin UNETR logits')
+    fwd_err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print('swin unetr {0} f32 TF32-off: eval (kernel) vs train mode (plain) '
+          'max abs err {1:.3g} (|logit| max {2:.3g}); {3} launches, {4} '
+          'shifted'.format(list(x.shape), fwd_err, scale, launches, shifted))
+    check(fwd_err <= SWIN_FWD_TOL * max(1.0, scale),
+          'Swin UNETR eval forward disagrees with the plain attention')
+    del got, want
+    net.eval()
+    from fpl_plus_torch.engine.infer import window_grid
+    fwd_per_volume = -(-len(window_grid(VOLUME, SWIN_WINDOW, SWIN_WINDOW))
+                       // PATCH_CHUNK)
+    forwards, stage_launches, stage_shifted, labels = swin_test_stage(net)
+    print('swin unetr test stage: {0} volumes {1}, {2} eval forwards, {3} '
+          'window attention launches ({4} shifted)'.format(
+              N_VOLUMES, list(VOLUME), forwards, stage_launches,
+              stage_shifted))
+    check(forwards == N_VOLUMES * fwd_per_volume,
+          'Swin UNETR test stage: {0} forwards, expected {1}'.format(
+              forwards, N_VOLUMES * fwd_per_volume))
+    check(stage_launches == 8 * forwards and stage_shifted == 4 * forwards,
+          'Swin UNETR test stage: {0} launches ({1} shifted) for {2} '
+          'forwards, not 8 (4) each'.format(stage_launches, stage_shifted,
+                                            forwards))
+    for lab in labels:
+        check(lab.shape == (1,) + VOLUME and lab.dtype == np.uint8
+              and set(np.unique(lab).tolist()) <= {0, 1},
+              'Swin UNETR label {0} {1}'.format(lab.shape, lab.dtype))
+    fwd_ms = {}
+    for precision, dtype in (('float32', torch.float32),
+                             ('bfloat16', torch.bfloat16)):
+        m = copy.deepcopy(net).to(dtype)
+        xx = x.to(dtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            fwd_ms[precision] = cuda_ms(lambda: m(xx), reps=5)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print('swin unetr forward {0} (cuDNN TF32 as default): {1:.2f} ms, '
+              'peak {2:.2f} GiB'.format(precision, fwd_ms[precision],
+                                        peak_gib))
+        del m, xx
+        torch.cuda.empty_cache()
+    return {'name': 'window_attention', 'route': 'triton',
+            'source': SWIN_SOURCE, 'replaces': None, 'rows': rows,
+            'max_abs_err': worst,
+            'launches_per_forward': stage_launches / forwards,
+            'shifted_per_forward': stage_shifted / forwards,
+            'test_stage_forwards': forwards,
+            'forward_max_abs_err': fwd_err,
+            'forward_ms': fwd_ms}
+
+
 def trace_sessions_phase(dev, net):
     """(38) Back-to-back ``trace_metrics`` sessions (see the module
     docstring): each trace's launch calls against its kernel events."""
@@ -5930,6 +6215,7 @@ def main():
         driver = driver_phase(ws, dev, smi)
         half = precision_phase(ws, dev, fwd_per_volume)
     sessions = trace_sessions_phase(dev, net)
+    swin = window_attention_phase(dev)
     bytes_ = scale_out_bytes(sum(p.numel() for p in net.parameters()))
     print('scale-out bytes (reckoned, f32): {0}'.format(bytes_))
     flop_per_volume = 2 * macs * BATCH * fwd_per_volume
@@ -6213,7 +6499,7 @@ def main():
         'pipeline4_wall_s': driver['full']['wall_s'],
         'driver_wall_s': driver['wall_s'],
     }
-    print(json.dumps({'kernels': [entry]}))
+    print(json.dumps({'kernels': [entry, swin]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ normalisation bank ignore the domain. ``Dis`` (the discriminator on
 ``trilinear`` True, ``deep_supervise`` False (the ScSE UNet2D takes none, as
 in JAX). The ``pallas_fused`` and ``flat25d`` keys are accepted and have no
 effect: the eval DSBN+PReLU on the card always runs the fused kernel, and
-the folded 2.5D layout is the only one.
+the folded 2.5D layout is the only one. ``SwinUNETR`` is the port's own
+(the JAX package has none): MONAI's network, built from ``feature_size``
+(48), ``depths`` ([2,2,2,2]) and ``num_heads`` ([3,6,12,24]).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from fpl_plus_torch.models.unet2d import (COPLENet, AttentionUNet2D,
                                           NestedUNet2D, UNet2D, UNet2DCCT,
                                           UNet2DDualBranch, UNet2DScSE,
                                           UNet2DURPC)
+from fpl_plus_torch.models.swin_unetr import SwinUNETR
 from fpl_plus_torch.models.unet2d5_dsbn import AEs, Dis, UNet2D5, UNet2D5DSBN
 from fpl_plus_torch.models.unet3d import UNet3D, UNet3DScSE
 
@@ -70,10 +73,15 @@ SegNetDict = {
         num_domains=cfg.get('num_domains', 2), **_unet2d5(cfg)),
     'UNet3D': _unet3d(UNet3D),
     'UNet3D_ScSE': _unet3d(UNet3DScSE),
+    'SwinUNETR': lambda cfg: SwinUNETR(
+        cfg['in_chns'], cfg['class_num'], cfg.get('feature_size', 48),
+        list(cfg.get('depths', (2, 2, 2, 2))),
+        list(cfg.get('num_heads', (3, 6, 12, 24)))),
 }
 
 # nets that are intrinsically 3D (the others fold a depth axis slice-wise)
-NETS_3D = {'UNet2D5', 'UNet2D5_dsbn', 'UNet3D', 'UNet3D_ScSE', 'Dis', 'AEs'}
+NETS_3D = {'UNet2D5', 'UNet2D5_dsbn', 'UNet3D', 'UNet3D_ScSE', 'Dis', 'AEs',
+           'SwinUNETR'}
 
 
 def create_network(net_cfg: Dict[str, Any]) -> nn.Module:
